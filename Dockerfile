@@ -13,8 +13,8 @@ WORKDIR /opt/vector-store-tpu
 COPY vector_store_tpu/ vector_store_tpu/
 COPY --from=builder /src/native/libvst_native.so native/
 COPY pyproject.toml README.md ./
-# TPU runtime wheels are environment-specific; install the matching
-# jax[tpu] at deploy time or bake it here for your pod slice.
-RUN pip install --no-cache-dir numpy aiohttp jax
+# The GPU runtime comes with JAX's CUDA plugin (jax[cuda12]); the host
+# needs an NVIDIA driver matching it.
+RUN pip install --no-cache-dir numpy aiohttp "jax[cuda12]"
 EXPOSE 6080
 CMD ["python", "-m", "vector_store_tpu", "--addr", "0.0.0.0:6080"]

@@ -1,12 +1,10 @@
 // Specialized JSON scanners for the serving hot path.
 //
 // The reference's HTTP layer is axum/serde (Rust, ~zero-copy); Python's
-// json module costs ~400us to parse one 768-d embedding body, which
-// caps the single-process serving rate near 1-2k QPS before the device
-// does any work at all (measured r5: 872us for a dumps+loads roundtrip
-// at 768-d vs an 8.1k rps aiohttp ceiling).  These scanners parse the
-// two hot fields of PostIndexAnnRequest — "embedding": [floats] and
-// "limit": int — directly from the raw body in ~20us.
+// json module's parse of one 768-d embedding body is a large share of
+// a single-process server's per-request host time.  These scanners
+// parse the two hot fields of PostIndexAnnRequest — "embedding":
+// [floats] and "limit": int — directly from the raw body.
 //
 // Safety contract: they are STRICT and conservative.  Any structural
 // surprise (key absent, key not unique, value not a flat numeric

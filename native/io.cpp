@@ -2,7 +2,7 @@
 //
 // The reference's ingestion data plane is native (ScyllaDB rust driver +
 // scylla-cdc streaming rows into the index actor, reference:
-// src/db_index.rs:297-375).  The TPU build's equivalent host-side hot
+// src/db_index.rs:297-375).  This build's equivalent host-side hot
 // path — parsing on-disk vector datasets and maintaining the
 // PrimaryKey⇄slot bimap (reference: src/index/usearch.rs:109-113) — is
 // implemented here in C++ and exposed over a C ABI for ctypes.

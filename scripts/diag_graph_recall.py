@@ -1,4 +1,4 @@
-"""Diagnose the r4 graph recall saturation (VERDICT r4 item 1).
+"""Diagnose graph recall saturation on a capped build.
 
 Reproduces bench.py's capped graph build (first 2^17 rows of the 1M-style
 clustered corpus, insert_block=1024, f32 bank) and sweeps the suspects:
@@ -132,7 +132,7 @@ def main() -> None:
     exact = np.asarray(oracle_ids)
 
     def measure(tag: str, idx: SlotIndex, **knobs) -> float:
-        cfg = dataclasses.replace(idx.cfg, fused_gather=False, **knobs)
+        cfg = dataclasses.replace(idx.cfg, **knobs)
         d_, i_ = search_mod.search(idx.state, qdev, cfg, K)
         jax.block_until_ready((d_, i_))
         rec = recall_of(np.asarray(i_), exact)

@@ -1,8 +1,9 @@
 """Closed-loop HTTP load generator for the ANN serving path.
 
 Runs OUTSIDE the server process so client-side JSON/TCP work doesn't
-share the server's GIL (in-process load generation was measured to cap
-the r5 serving numbers ~2x below the server's real capacity).
+share the server's GIL (in-process load generation can cap the measured
+serving rate well below the server's capacity).  It never imports JAX,
+so it does not take a share of the card.
 
 Bodies are pre-encoded once (a real load generator would too); each
 worker free-runs POSTs until the deadline.  Prints ONE JSON line:

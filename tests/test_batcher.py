@@ -62,7 +62,7 @@ async def test_batcher_rejects_after_close():
 @pytest.mark.asyncio
 async def test_batcher_short_results_fail_loudly():
     """A flush_fn returning fewer results than items must fail every
-    future in the batch (review r3: zip() silently stranded the rest)."""
+    future in the batch (zip() once silently stranded the rest)."""
 
     async def run():
         batcher = MicroBatcher(lambda items: [0] * (len(items) - 1), window_s=0.01)

@@ -2,7 +2,7 @@
 
 Ports the reference's monitor_items `flow` test (monitor_items.rs:82-207)
 and the db_basic-driven end-to-end pipeline test (tests/integration/
-usearch.rs:22-135) onto the TPU engine, zero external processes.
+usearch.rs:22-135) onto the device engine, zero external processes.
 """
 
 import asyncio
@@ -28,7 +28,7 @@ async def test_monitor_items_lww_flow():
     """Hand-fed events: out-of-order timestamps dropped, None → Remove,
     clean shutdown on stream close (monitor_items.rs:82-207).
 
-    The bridge coalesces queued events into batched upserts (a TPU
+    The bridge coalesces queued events into batched upserts (a batching
     deviation from the reference's one-message-per-event), so the assert
     replays the applied operations and checks per-key FINAL state plus
     that the stale write never reached the index."""

@@ -1,9 +1,8 @@
-"""Fused pallas probe-scan ≡ the XLA lax.scan path (interpret mode).
+"""IVF probe-scan kernel (core/ivf_pallas.py) against numpy, in the
+Pallas interpreter, plus the Triton lowering and the path choice.
 
-The fused kernel (core/ivf_pallas.py) must return exactly the ids the
-XLA path returns — it is the same algorithm with the HBM gather
-materialization removed.  These run the mosaic interpreter on the CPU
-mesh; the real-chip path is exercised by bench.py / scripts/probe_scale.
+The compiled kernel runs only on a GPU; tests/test_gpu.py checks it
+there at real widths.
 """
 
 import functools
@@ -23,276 +22,160 @@ def _clustered(n, d, seed=0):
     ).astype(np.float32)
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
-@pytest.mark.parametrize("space", ["cosine", "l2"])
-def test_fused_matches_xla(space, dtype):
-    import jax
+def _pool_reference(vectors, scales, rid_masked, nlive, q, cids, space):
+    """float64 numpy twin of probe_scan: [Q, p*B] distances, +inf past
+    each bucket's live bound and on SENTINEL rowids."""
+    from vector_store_tpu.core.ivf_pallas import SENTINEL
+
+    vec = np.asarray(vectors).astype(np.float64)
+    vec = vec * np.asarray(scales, np.float64)[..., None]
+    Q, p = cids.shape
+    B = vec.shape[1]
+    out = np.full((Q, p * B), np.inf)
+    for i in range(Q):
+        for r in range(p):
+            c = int(cids[i, r])
+            x = vec[c]
+            qv = np.asarray(q[i], np.float64)
+            if space == "l2":
+                d = ((x - qv) ** 2).sum(-1)
+            elif space == "dot":
+                d = -(x @ qv)
+            else:
+                d = 1.0 - x @ qv
+            ok = (np.arange(B) < nlive[c]) & (rid_masked[c] != SENTINEL)
+            out[i, r * B : (r + 1) * B] = np.where(ok, d, np.inf)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("space", ["cosine", "l2", "dot"])
+def test_probe_scan_matches_numpy(space, dtype):
+    """Interpreted kernel ≡ the numpy pool on a bank with a D that is not
+    a power of two (masked chunk), partly filled and tombstoned
+    buckets."""
     import jax.numpy as jnp
 
     from vector_store_tpu.core import distance as dist_mod
-    from vector_store_tpu.core.ivf import search_clustered
-    from vector_store_tpu.core.ivf_pallas import search_fused
-    from vector_store_tpu.core.topk import SENTINEL
+    from vector_store_tpu.core.ivf_pallas import SENTINEL, live_rows, probe_scan
+    from vector_store_tpu.core.quantize import quantize_rows
 
-    d = 128  # fused path needs 128-aligned dims
-    x = _clustered(6000, d, seed=3)
-    idx = IvfIndex(
-        IndexParams(dimensions=d, space=space, dtype=dtype), cluster_min=4000
+    rng = np.random.default_rng(7)
+    K, B, D, Q, p = 6, 128, 96, 3, 4
+    raw = dist_mod.preprocess(
+        jnp.asarray(rng.normal(size=(K * B, D)).astype(np.float32)), space
     )
-    ids = idx.add(x)
-    idx.remove(ids[10:40])  # tombstones must never surface
-    st = idx.state
-    assert st.bucket % 128 == 0
-
-    rng = np.random.default_rng(4)
-    q = x[:16] + 0.05 * rng.normal(size=(16, d)).astype(np.float32)
-    qp = dist_mod.preprocess(jnp.asarray(q), space).astype(jnp.float32)
-    cd = dist_mod.pairwise(
-        qp.astype(st.centroids.dtype), st.centroids, space
-    )
-    _, cids = jax.lax.top_k(-cd, 8)
-    rid_masked = jnp.where(st.valid, st.rowid, SENTINEL)
-
-    d_f, r_f = search_fused(
-        st.vectors,
-        st.scales,
-        rid_masked,
-        qp,
-        cids.astype(jnp.int32),
-        space,
-        10,
-        8,
-        quantized=dtype == "int8",
-        interpret=True,
-    )
-    d_x, r_x = search_clustered(st, jnp.asarray(q), space, 10, 8)
-    rf, rx = np.asarray(r_f), np.asarray(r_x)
-    # the fused kernel scores in f32 while the XLA path scores in the
-    # bf16 compute dtype — on int8 clustered data the k-boundary gaps sit
-    # BELOW bf16 epsilon, so sets may differ at the tail.  The contract:
-    # same top hit, overwhelmingly the same set, same distances, and
-    # recall against the exact oracle at least as good as the XLA path's.
-    overlap = np.mean([len(set(rf[i]) & set(rx[i])) / 10 for i in range(len(rf))])
-    assert overlap >= 0.9, f"result sets diverged: overlap {overlap}"
-    assert (rf[:, 0] == rx[:, 0]).all()
-    np.testing.assert_allclose(
-        np.sort(np.asarray(d_f)), np.sort(np.asarray(d_x)), rtol=5e-2, atol=2e-2
-    )
-    # float64 host oracle over the dequantized bank (the device oracle
-    # scores in bf16 and would favour the bf16 XLA path on ties)
-    K_, B_, _ = np.asarray(st.vectors).shape
-    bank = np.asarray(st.vectors).astype(np.float64).reshape(K_ * B_, d)
-    bank *= np.asarray(st.scales).astype(np.float64).reshape(-1, 1)
-    rid_flat = np.asarray(st.rowid).reshape(-1)
-    live = np.asarray(st.valid).reshape(-1)
-    qh = np.asarray(q, dtype=np.float64)
-    if space == "cosine":
-        bank = bank / np.maximum(
-            np.linalg.norm(bank, axis=1, keepdims=True), 1e-30
-        )
-        qh = qh / np.linalg.norm(qh, axis=1, keepdims=True)
-        dist_h = 1.0 - qh @ bank.T
+    if dtype == "int8":
+        rows, scl = quantize_rows(raw)
+        vectors, scales = rows.reshape(K, B, D), scl.reshape(K, B)
     else:
-        dist_h = ((qh[:, None, :] - bank[None, :, :]) ** 2).sum(-1)
-    dist_h[:, ~live] = np.inf
-    gt = rid_flat[np.argsort(dist_h, axis=1)[:, :10]]
-    rec = lambda r: np.mean(  # noqa: E731
-        [len(set(r[i]) & set(gt[i])) / 10 for i in range(len(r))]
+        vectors = raw.astype(jnp.dtype(dtype)).reshape(K, B, D)
+        scales = jnp.ones((K, B), jnp.float32)
+    valid = np.zeros((K, B), bool)
+    for c, n in enumerate([128, 70, 0, 1, 64, 100]):
+        valid[c, :n] = True
+    valid[1, 5:9] = False  # tombstones inside the live prefix
+    rowid = np.arange(K * B, dtype=np.int32).reshape(K, B)
+    rid_masked = np.where(valid, rowid, SENTINEL).astype(np.int32)
+    nlive = np.asarray(live_rows(jnp.asarray(valid)))
+    q = np.asarray(
+        dist_mod.preprocess(
+            jnp.asarray(rng.normal(size=(Q, D)).astype(np.float32)), space
+        )
     )
-    assert rec(rf) >= rec(rx) - 0.02, (
-        f"fused recall {rec(rf)} fell below the XLA path {rec(rx)}"
+    cids = rng.integers(0, K, (Q, p)).astype(np.int32)
+    got = np.asarray(
+        probe_scan(
+            vectors,
+            scales,
+            jnp.asarray(rid_masked),
+            jnp.asarray(nlive),
+            jnp.asarray(q),
+            jnp.asarray(cids),
+            space,
+            interpret=True,
+        )
     )
-    removed = set(ids[10:40].tolist())
-    assert not (set(rf.ravel().tolist()) & removed)
+    want = _pool_reference(
+        np.asarray(vectors.astype(jnp.float32)),
+        np.asarray(scales),
+        rid_masked,
+        nlive,
+        q,
+        cids,
+        space,
+    )
+    assert got.shape == (Q, p * B)
+    assert (np.isinf(got) == np.isinf(want)).all()
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4, atol=1e-4)
 
 
-def test_fused_wrapper_matches(monkeypatch):
-    """search_clustered_fused (one-dispatch wrapper) ≡ search_clustered."""
+def test_live_rows_semantics():
+    """live_rows = last live slot + 1 per cluster, 0 for empty buckets —
+    the kernel never reads past it."""
     import jax.numpy as jnp
 
-    from vector_store_tpu.core.ivf import search_clustered
-    from vector_store_tpu.core.ivf_pallas import search_clustered_fused
-
-    d = 128
-    x = _clustered(6000, d, seed=5)
-    idx = IvfIndex(
-        IndexParams(dimensions=d, space="cosine"), cluster_min=4000
-    )
-    idx.add(x)
-    st = idx.state
-    q = jnp.asarray(x[:8])
-    d_f, r_f = search_clustered_fused(st, q, "cosine", 5, 8, interpret=True)
-    d_x, r_x = search_clustered(st, q, "cosine", 5, 8)
-    assert (np.asarray(r_f) == np.asarray(r_x)).all()
-
-
-def test_live_prefix_blocks_semantics():
-    """live_prefix_blocks = ceil((last live slot + 1) / SB) per cluster,
-    0 for empty buckets — the DMA bound for the live-prefix scan."""
-    import jax.numpy as jnp
-
-    from vector_store_tpu.core.ivf_pallas import live_prefix_blocks
+    from vector_store_tpu.core.ivf_pallas import live_rows
 
     valid = np.zeros((4, 512), bool)
-    valid[0, :10] = True  # live prefix 10 -> 1 block of 128
-    valid[1, 200] = True  # lone live row at 200 -> 2 blocks
-    valid[2, :512] = True  # full bucket -> 4
-    # bucket 3 stays empty -> 0
-    nsb = np.asarray(live_prefix_blocks(jnp.asarray(valid), block=128))
-    assert nsb.tolist() == [1, 2, 4, 0]
+    valid[0, :10] = True
+    valid[1, 200] = True  # lone live row at 200
+    valid[2, :512] = True
+    # bucket 3 stays empty
+    assert np.asarray(live_rows(jnp.asarray(valid))).tolist() == [10, 201, 512, 0]
 
 
-@pytest.mark.slow
-def test_live_prefix_parity():
-    """live_prefix=True (DMA only each bucket's live prefix) must return
-    exactly what the full-padded-width scan returns, on a bank whose
-    buckets are heavily tombstoned — the lanes beyond the prefix hold
-    stale VMEM garbage and must be masked by the rowid sentinels."""
+@pytest.mark.parametrize("dims", [768, 96])
+def test_probe_scan_lowers_to_triton(dims):
+    """The kernel lowers through the Triton route for a CUDA target
+    (lowering needs no card; compiling to PTX happens on the GPU)."""
+    import jax
     import jax.numpy as jnp
 
-    from vector_store_tpu.core.ivf_pallas import search_clustered_fused
+    from vector_store_tpu.core.ivf import init, search_clustered_kernel
 
-    d = 128
-    x = _clustered(6000, d, seed=11)
-    idx = IvfIndex(
-        IndexParams(dimensions=d, space="cosine", dtype="int8"),
-        cluster_min=4000,
+    st = init(dims, 128, 256, "int8")
+    q = jnp.zeros((8, dims), jnp.float32)
+    lowered = (
+        jax.jit(search_clustered_kernel, static_argnums=(2, 3, 4))
+        .trace(st, q, "cosine", 10, 16)
+        .lower(lowering_platforms=("cuda",))
     )
-    ids = idx.add(x)
-    idx.remove(ids[2000:])  # shear most buckets down to short prefixes
-    st = idx.state
-    q = jnp.asarray(x[:8])
-    d_t, r_t = search_clustered_fused(
-        st, q, "cosine", 10, 8, interpret=True, live_prefix=True
-    )
-    d_f, r_f = search_clustered_fused(
-        st, q, "cosine", 10, 8, interpret=True, live_prefix=False
-    )
-    assert (np.asarray(r_t) == np.asarray(r_f)).all()
-    np.testing.assert_allclose(np.asarray(d_t), np.asarray(d_f))
-    dead = set(ids[2000:].tolist())
-    assert not (set(np.asarray(r_t).ravel().tolist()) & dead)
+    text = lowered.as_text()
+    assert "ivf_probe_scan" in text and "triton" in text.lower()
 
 
-@functools.lru_cache(maxsize=1)
-def _geometry_case():
-    """One shared (state, queries, reference) across the geometry params:
-    the index build and the default-geometry interpret run dominate the
-    test's cost and are identical for every combo."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize(
+    "platform,kernel", [("gpu", True), ("cpu", False)]
+)
+def test_scan_path_chosen_by_platform(platform, kernel):
+    from vector_store_tpu.core.ivf import scan_kernel_for
 
-    from vector_store_tpu.core.ivf_pallas import search_clustered_fused
-
-    d = 128
-    x = _clustered(4000, d, seed=7)
-    idx = IvfIndex(
-        IndexParams(dimensions=d, space="cosine"), cluster_min=2500
-    )
-    idx.add(x)
-    st = idx.state
-    q = jnp.asarray(x[:16])
-    d_ref, r_ref = search_clustered_fused(st, q, "cosine", 5, 4, interpret=True)
-    return st, q, np.asarray(d_ref), np.asarray(r_ref)
+    assert scan_kernel_for(platform) is kernel
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("qg,nbuf", [(16, 4), (8, 8), (16, 2)])
-def test_fused_geometry_invariant(qg, nbuf):
-    """Results must not depend on the (qg, nbuf) kernel geometry — the
-    query-group size and DMA ring depth are pure performance knobs.
-    Slow tier: a 3-point interpret-mode sweep (~90s); the default-
-    geometry parity tests above stay in the fast tier."""
-    from vector_store_tpu.core.ivf_pallas import search_clustered_fused
+@pytest.mark.parametrize("space", ["cosine", "l2"])
+def test_kernel_search_matches_xla(monkeypatch, space):
+    """IvfIndex.search on the kernel path (interpreted) returns what the
+    XLA scan returns: same ids, same distances."""
+    from vector_store_tpu.core import ivf as ivf_mod
 
-    st, q, d_ref, r_ref = _geometry_case()
-    d_g, r_g = search_clustered_fused(
-        st, q, "cosine", 5, 4, interpret=True, qg=qg, nbuf=nbuf
-    )
-    assert (np.asarray(r_g) == r_ref).all()
-    np.testing.assert_allclose(np.asarray(d_g), d_ref)
-
-
-@pytest.mark.slow
-def test_pool_mode_large_k_matches_xla():
-    """search_clustered_pool (pool kernel + XLA top-k) must agree with
-    search_clustered past FUSED_MAX_K — interpret mode."""
-    import jax.numpy as jnp
-
-    from vector_store_tpu.core.ivf import FUSED_MAX_K, search_clustered
-    from vector_store_tpu.core.ivf_pallas import search_clustered_pool
-
-    d = 128
+    d = 48
     x = _clustered(6000, d, seed=5)
-    idx = IvfIndex(
-        IndexParams(dimensions=d, space="cosine", dtype="int8"),
-        cluster_min=4000,
-    )
+    idx = IvfIndex(IndexParams(dimensions=d, space=space), cluster_min=4000)
     ids = idx.add(x)
-    idx.remove(ids[3:9])
-    st = idx.state
-    k = FUSED_MAX_K * 2
-    rng = np.random.default_rng(8)
-    q = jnp.asarray(
-        x[:16] + 0.05 * rng.normal(size=(16, d)).astype(np.float32)
+    idx.remove(ids[:40])  # tombstones must never surface
+    assert idx._clustered and not idx._kernel  # CPU: XLA path by default
+    q = x[40:56]
+    d_x, r_x = idx.search(q, 10, probes=8)
+    monkeypatch.setattr(
+        ivf_mod,
+        "search_clustered_kernel",
+        functools.partial(ivf_mod.search_clustered_kernel, interpret=True),
     )
-    d_p, r_p = search_clustered_pool(st, q, "cosine", k, 8, interpret=True)
-    d_x, r_x = search_clustered(st, q, "cosine", k, 8)
-    d_p, d_x = np.asarray(d_p), np.asarray(d_x)
-    r_p, r_x = np.asarray(r_p), np.asarray(r_x)
-    # the pool kernel scores dequantized rows in f32; the XLA path
-    # dequantizes to bf16 before the matmul — same thresholds as the
-    # bench's on-chip parity gate (dist 2e-2, id overlap 0.97)
-    fin = np.isfinite(d_x) & np.isfinite(d_p)
-    assert (np.isfinite(d_p) == np.isfinite(d_x)).all()
-    assert float(np.max(np.abs(d_p[fin] - d_x[fin]))) <= 2e-2
-    overlap = np.mean(
-        [len(set(r_p[i].tolist()) & set(r_x[i].tolist())) / k for i in range(16)]
-    )
-    assert overlap >= 0.97, overlap
-    dead = set(ids[3:9].tolist())
-    assert not (set(r_p.reshape(-1).tolist()) & dead)
-
-
-@pytest.mark.slow
-def test_score_modes():
-    """score='qi8' (query quantized to int8, s8xs8 MXU dot) must rank
-    ~the same ids as the f32 dot on int8 rows — small dequant error is
-    allowed, exact id equality is not required.  score='stub' (the
-    DMA-floor ablation) must run and return well-formed [Q, k] ids."""
-    import jax.numpy as jnp
-
-    from vector_store_tpu.core.ivf_pallas import search_clustered_fused
-
-    d = 128
-    x = _clustered(6000, d, seed=13)
-    idx = IvfIndex(
-        IndexParams(dimensions=d, space="cosine", dtype="int8"),
-        cluster_min=4000,
-    )
-    idx.add(x)
-    st = idx.state
-    q = jnp.asarray(x[:8])
-    _, r_f32 = search_clustered_fused(st, q, "cosine", 10, 8, interpret=True)
-    for mode in ("qi8", "bf16"):
-        _, r_m = search_clustered_fused(
-            st, q, "cosine", 10, 8, interpret=True, score=mode
-        )
-        overlap = np.mean(
-            [
-                len(set(a.tolist()) & set(b.tolist())) / 10
-                for a, b in zip(np.asarray(r_f32), np.asarray(r_m))
-            ]
-        )
-        assert overlap >= 0.9, (mode, overlap)
-
-    d_s, r_s = search_clustered_fused(
-        st, q, "cosine", 10, 8, interpret=True, score="stub"
-    )
-    assert np.asarray(r_s).shape == (8, 10)
-
-    for mode in ("qi8", "bf16"):
-        with pytest.raises(ValueError):
-            search_clustered_fused(
-                st, q, "l2", 10, 8, interpret=True, score=mode
-            )
+    idx._kernel = True
+    d_k, r_k = idx.search(q, 10, probes=8)
+    assert (r_k == r_x).all()
+    np.testing.assert_allclose(d_k, d_x, rtol=1e-4, atol=1e-4)
+    assert not set(r_k.ravel().tolist()) & set(ids[:40].tolist())

@@ -128,35 +128,49 @@ def test_bm25_snapshot_roundtrip(tmp_path):
         assert s2 in {h[0] for h in idx.search(["tensor"], 3)[0]}
 
 
-def test_fused_gather_default_and_env_override(monkeypatch):
-    """fused_gather defaults per backend (OFF on this CPU harness, ON on
-    a real TPU) and VST_GRAPH_FUSED forces it either way."""
-    from vector_store_tpu.core.index import config_from_params, default_fused_gather
+def _with_retired_cfg_key(path):
+    """Rewrite a snapshot's meta as older builds wrote it: `cfg` carried
+    a `fused_gather` execution flag, a field that no longer exists."""
+    import json
 
-    monkeypatch.delenv("VST_GRAPH_FUSED", raising=False)
-    assert default_fused_gather() is False  # conftest pins JAX_PLATFORMS=cpu
-    monkeypatch.setenv("VST_GRAPH_FUSED", "1")
-    assert default_fused_gather() is True
-    assert config_from_params(IndexParams(dimensions=16)).fused_gather is True
-    monkeypatch.setenv("VST_GRAPH_FUSED", "0")
-    assert default_fused_gather() is False
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(arrays["meta"]).decode())
+    meta["cfg"]["fused_gather"] = True
+    arrays["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **arrays)
 
 
-def test_snapshot_load_rederives_fused_gather(rng, monkeypatch):
-    """fused_gather is execution policy, not index data: a snapshot
-    written with it ON (e.g. on a TPU host) must load with the LOADING
-    backend's default, or a CPU restore would die inside Mosaic."""
-    monkeypatch.setenv("VST_GRAPH_FUSED", "1")
+def test_snapshot_with_retired_fused_gather_loads(rng):
+    """A snapshot whose config still holds `fused_gather` loads, and the
+    restored index answers as the saved one did."""
     idx = SlotIndex(IndexParams(dimensions=16), initial_capacity=2048)
-    assert idx.cfg.fused_gather is True
-    # adds would trip the (unavailable-on-cpu) kernel — snapshot empty
+    x = rng.normal(size=(300, 16)).astype(np.float32)
+    idx.add(x)
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "snap.npz")
         persist.save(path, idx)
-        monkeypatch.delenv("VST_GRAPH_FUSED")
+        _with_retired_cfg_key(path)
         restored, _ = persist.load(path)
-    assert restored.cfg.fused_gather is False
-    # and the restored index is actually usable on this backend
+    assert not hasattr(restored.cfg, "fused_gather")
+    d0, i0 = idx.search(x[:8], 5)
+    d1, i1 = restored.search(x[:8], 5)
+    assert (i0 == i1).all()
     restored.add(rng.normal(size=(32, 16)).astype(np.float32))
-    d, i = restored.search(np.zeros(16, np.float32), 3)
-    assert len(i) == 3
+    assert restored.count() == 332
+
+
+def test_sharded_snapshot_with_retired_fused_gather_loads(rng, tmp_path):
+    """Same for the sharded graph index's snapshot."""
+    from vector_store_tpu.shard.sharded_index import ShardedSlotIndex
+
+    idx = ShardedSlotIndex(IndexParams(dimensions=16), n_devices=2)
+    x = rng.normal(size=(200, 16)).astype(np.float32)
+    idx.add(x)
+    path = str(tmp_path / "sharded.npz")
+    idx.save(path)
+    _with_retired_cfg_key(path)
+    restored = ShardedSlotIndex.load(path)
+    _, i0 = idx.search(x[:4], 3)
+    _, i1 = restored.search(x[:4], 3)
+    assert (i0 == i1).all()

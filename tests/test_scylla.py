@@ -234,7 +234,7 @@ async def test_cdc_upsert_and_tombstone():
 
 @pytest.mark.asyncio
 async def test_cdc_cursor_advances_by_timeuuid_order():
-    """ADVICE r2: the poll cursor advanced by UUID.int — which leads
+    """The poll cursor advanced by UUID.int — which leads
     with time_low — so a later-in-time row with a smaller int never
     became the cursor and everything above it was re-fetched every poll.
     The cursor must follow timeuuid (timestamp-first) ordering."""

@@ -152,7 +152,7 @@ def test_sharded_remove_count_integrity(mesh8, rng):
 @pytest.mark.slow
 def test_sharded_single_row_adds_balance(mesh8, rng):
     """A stream of single-row add() calls must spread over shards via the
-    rotating cursor (review r3: every call restarted at shard 0)."""
+    rotating cursor (every call once restarted at shard 0)."""
     idx = ShardedSlotIndex(
         IndexParams(dimensions=8, space="l2"), mesh=make_mesh(4)
     )

@@ -1,10 +1,10 @@
-"""Sharded-IVF parity with the single-chip IvfIndex (VERDICT r2 item 2).
+"""Sharded-IVF parity with the single-device IvfIndex.
 
 The IVF backend is the fastest serving tier; these tests prove it is a
 drop-in on the 8-virtual-device CPU mesh: staging→clustered transition,
 stable ids across recluster, tombstone churn, persistence, and the
 engine-level backend="ivf", n_devices>1 wiring (previously a silent
-fall-through to the graph backend — ADVICE r2).
+fall-through to the graph backend).
 """
 
 import numpy as np
@@ -114,44 +114,35 @@ def test_sharded_ivf_int8_and_persist(tmp_path):
     assert idx2.count() == idx.count() + 16
 
 
-@pytest.mark.slow
-def test_sharded_fused_matches_probe_interpret():
-    """The per-shard fused-kernel plumbing (mode='fused' in _sh_search)
-    must agree with the XLA probe path — mosaic interpreter on the CPU
-    mesh; the compiled kernel is gated by bench.py's on-chip parity
-    check."""
+def test_sharded_kernel_matches_probe_interpret():
+    """The per-shard kernel plumbing (mode='kernel' in _sh_search,
+    interpreted) returns what the XLA probe path returns on the CPU
+    mesh; the compiled kernel is checked on the card (test_gpu.py)."""
     from vector_store_tpu.shard.sharded_ivf import _sh_search
 
-    d = 128  # fused path needs 128-aligned dims
-    x = _data(24000, d, seed=6)
+    d = 24
+    x = _data(6000, d, seed=6)
     idx = ShardedIvfIndex(
-        IndexParams(dimensions=d, space="cosine"), n_devices=8, cluster_min=2000
+        IndexParams(dimensions=d, space="cosine"), n_devices=4, cluster_min=1000
     )
     idx.add(x)
-    assert idx._clustered and idx.bucket % 128 == 0
+    assert idx._clustered
 
     rng = np.random.default_rng(7)
-    q = x[:16] + 0.05 * rng.normal(size=(16, d)).astype(np.float32)
-    d_f, i_f = _sh_search(
-        idx._state, q, "cosine", 10, 4, "fused", idx._holder, interpret=True
+    q = x[:8] + 0.05 * rng.normal(size=(8, d)).astype(np.float32)
+    d_k, i_k = _sh_search(
+        idx._state, q, "cosine", 10, 4, "kernel", idx._holder, interpret=True
     )
-    d_p, i_p = _sh_search(
-        idx._state, q, "cosine", 10, 4, "probe", idx._holder
-    )
-    i_f, i_p = np.asarray(i_f), np.asarray(i_p)
-    overlap = np.mean(
-        [len(set(i_f[i]) & set(i_p[i])) / 10 for i in range(len(i_f))]
-    )
-    assert overlap >= 0.9, f"sharded fused diverged: overlap {overlap}"
-    assert (i_f[:, 0] == i_p[:, 0]).all()
+    d_p, i_p = _sh_search(idx._state, q, "cosine", 10, 4, "probe", idx._holder)
+    assert (np.asarray(i_k) == np.asarray(i_p)).all()
     np.testing.assert_allclose(
-        np.sort(np.asarray(d_f)), np.sort(np.asarray(d_p)), rtol=5e-2, atol=2e-2
+        np.asarray(d_k), np.asarray(d_p), rtol=1e-4, atol=1e-4
     )
 
 
 @pytest.mark.asyncio
 async def test_engine_ivf_sharded_backend():
-    """backend='ivf' + n_devices>1 now builds the sharded IVF (ADVICE r2:
+    """backend='ivf' + n_devices>1 now builds the sharded IVF (
     it silently built the graph backend instead)."""
     from vector_store_tpu.engine.ann_index import AnnIndexFactory
     from vector_store_tpu.types import IndexId, IndexMetadata, Limit
@@ -178,7 +169,7 @@ async def test_engine_ivf_sharded_backend():
 def test_default_factory_routes_ivf_to_sharded():
     """new_index_factory(n_devices=8) must forward n_devices into the
     'ivf' kind so a served deployment actually gets the sharded tier
-    (review r3: it built a single-chip IvfIndex while 7 chips idled)."""
+    (it once built a single-device IvfIndex while 7 devices idled)."""
     import vector_store_tpu as vst
 
     factory = vst.new_index_factory(n_devices=8)

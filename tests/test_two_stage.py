@@ -3,15 +3,15 @@
 The coarse bank (core/quantize.py pack_int4_from_int8) is a DERIVED
 cache of the int8 bank — these tests pin the pack/unpack algebra, the
 recall contract of the two-stage search (search must stay within a
-whisker of the single-stage int8 scan after the rescore), the fused
-pool kernel (mosaic interpreter), and the cache-invalidation protocol
+whisker of the single-stage int8 scan after the rescore), and the
+cache-invalidation protocol
 (dirty clusters after inserts, full staleness after recluster/growth).
 """
 
 import numpy as np
 import pytest
 
-from vector_store_tpu.core.ivf import IvfIndex, derive_coarse, search_two_stage
+from vector_store_tpu.core.ivf import IvfIndex, derive_coarse
 from vector_store_tpu.types import IndexParams
 
 
@@ -78,106 +78,6 @@ def test_two_stage_recall_close_to_single_stage(space):
     r_two = _recall(ids_two, exact_i)
     assert r_two >= r_base - 0.02, (r_two, r_base)
     assert r_two >= 0.9
-
-
-@pytest.mark.slow
-def test_two_stage_fused_pool_matches_xla():
-    """The fused pool kernel (interpret mode) must reproduce the XLA
-    unpack+score pool EXACTLY — same f32 math, materialization removed.
-
-    (End-to-end id equality is deliberately not asserted: 4-bit codes
-    tie heavily, and the two top-C reductions may break a tie at the C
-    boundary differently; the pool is the deterministic contract.)"""
-    import jax
-    import jax.numpy as jnp
-
-    from vector_store_tpu.core import distance as dist_mod
-    from vector_store_tpu.core.ivf_pallas import pool_scan_fused
-    from vector_store_tpu.core.quantize import unpack_int4
-    from vector_store_tpu.core.topk import SENTINEL
-
-    d = 256  # packed bank trailing dim D/2 must be 128-aligned
-    x = _clustered(6000, d, seed=3)
-    idx = IvfIndex(
-        IndexParams(dimensions=d, space="cosine", dtype="int8"),
-        cluster_min=4000,
-        coarse=True,
-    )
-    ids = idx.add(x)
-    idx.remove(ids[5:25])  # dead rows must pool as +inf
-    st = idx.state
-    coarse = idx._refresh_coarse_locked()
-    B = st.bucket
-    qp = dist_mod.preprocess(
-        jnp.asarray(
-            x[:16]
-            + 0.05
-            * np.random.default_rng(4).normal(size=(16, d)).astype(np.float32)
-        ),
-        "cosine",
-    )
-    cd = dist_mod.pairwise(qp.astype(st.centroids.dtype), st.centroids, "cosine")
-    _, cids = jax.lax.top_k(-cd, 8)
-    cids = cids.astype(jnp.int32)
-    rid_masked = jnp.where(st.valid, st.rowid, SENTINEL)
-
-    pool = pool_scan_fused(
-        coarse,
-        st.scales,
-        rid_masked,
-        qp.astype(jnp.float32),
-        cids,
-        "cosine",
-        8,
-        quantized=True,
-        packed=True,
-        interpret=True,
-    )  # [16, 8*B]
-
-    # XLA reference: unpack the packed blocks and score in f32
-    blocks = jnp.take(coarse, cids, axis=0)  # [16, 8, B, D/2]
-    codes = unpack_int4(blocks).astype(jnp.float32)  # [16, 8, B, D]
-    scl = jnp.take(st.scales, cids, axis=0) * (127.0 / 7.0)
-    dots = jnp.einsum("qpbd,qd->qpb", codes, qp.astype(jnp.float32))
-    want = 1.0 - dots * scl
-    dead_m = jnp.take(rid_masked, cids, axis=0) == SENTINEL
-    want = jnp.where(dead_m, jnp.inf, want).reshape(16, -1)
-
-    np.testing.assert_allclose(
-        np.asarray(pool), np.asarray(want), rtol=1e-5, atol=1e-5
-    )
-
-
-@pytest.mark.slow
-def test_two_stage_fused_end_to_end_recall():
-    """Fused two-stage search (interpret mode) reaches the same recall
-    as the XLA two-stage path against the exact oracle."""
-    import jax.numpy as jnp
-
-    d = 256
-    x = _clustered(6000, d, seed=3)
-    idx = IvfIndex(
-        IndexParams(dimensions=d, space="cosine", dtype="int8"),
-        cluster_min=4000,
-        coarse=True,
-    )
-    idx.add(x)
-    st = idx.state
-    coarse = idx._refresh_coarse_locked()
-    q = x[:16] + 0.05 * np.random.default_rng(4).normal(size=(16, d)).astype(
-        np.float32
-    )
-    _, exact_i = idx.exact_search(q, 10)
-    _, r_x = search_two_stage(
-        st, coarse, jnp.asarray(q), "cosine", 10, 8, 80, fused=False
-    )
-    _, r_f = search_two_stage(
-        st, coarse, jnp.asarray(q), "cosine", 10, 8, 80, fused=True,
-        interpret=True,
-    )
-    rx, rf = _recall(np.asarray(r_x), exact_i), _recall(np.asarray(r_f), exact_i)
-    assert rf >= rx - 0.02, (rf, rx)
-    assert rf >= 0.9
 
 
 def test_coarse_cache_tracks_mutations():

@@ -1,4 +1,4 @@
-"""vector_store_tpu — a TPU-native vector & text search framework.
+"""vector_store_tpu — a vector & text search service on an accelerator.
 
 A ground-up JAX/XLA/Pallas re-design of the capability set of
 swasik/vector-store-text (ScyllaDB's vector-store sidecar + its text-search

@@ -25,7 +25,7 @@ def openapi_spec() -> dict:
         "openapi": "3.0.3",
         "info": {
             "title": "vector-store-tpu",
-            "description": "TPU-native vector & text search service",
+            "description": "Vector & text search service on an accelerator",
             "version": "0.1.0",
         },
         "tags": [

@@ -247,8 +247,8 @@ async def post_ann(request: web.Request) -> web.Response:
     if index is None:
         return _json_error(404)
     # Hot path: the native scanner parses the two fields of
-    # PostIndexAnnRequest straight off the raw body (~20us vs ~400us for
-    # json.loads at 768-d — the measured single-process serving wall).
+    # PostIndexAnnRequest straight off the raw body (json.loads of a
+    # 768-d body is a large share of the per-request host time).
     # Any structural surprise returns None and the full JSON parse below
     # keeps its exact error semantics.
     raw = await request.read()

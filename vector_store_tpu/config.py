@@ -7,8 +7,10 @@ here: env vars with defaults, plus an optional `.env` file loaded at startup.
 Additional knobs read where they apply (all optional):
   VST_REQUEST_TIMEOUT_S   serving deadline for query requests, 504 on
                           expiry (api/routes.py; default 0 = off)
-  VST_IVF_FUSED=0         opt out of the fused pallas probe-scan
   VST_IVF_ROWS_PER_BUCKET IVF geometry target (cluster granularity)
+  VST_IVF_COARSE=1        two-stage int4 coarse + int8 rescore IVF scan
+  JAX_COMPILATION_CACHE_DIR  persistent compile cache (JAX's own
+                          variable; default <checkout>/.jax_cache)
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ class Config:
     log_level: str = field(
         default_factory=lambda: os.environ.get("VST_TPU_LOG", "INFO")
     )
-    # Devices to shard indexes over: 1 = single-chip (default), 0 = every
+    # Devices to shard indexes over: 1 = one device (default), 0 = every
     # visible device, N = the first N.  Backed by shard/ (ANN) and
     # text/sharded_bm25.py (text).
     n_devices: int = field(

@@ -7,9 +7,9 @@ through the HNSW graph):
     graph is still tiny;
   * an exact backend for small collections where a graph is overhead.
 
-One MXU matmul per (query block × bank chunk), chunked with `lax.scan`
-over the bank so HBM traffic streams through VMEM-sized tiles and the
-running top-k stays on-chip.
+One matmul per (query block × bank chunk), chunked with `lax.scan` over
+the bank so the [Q, chunk] distance block stays bounded and the running
+top-k is carried between chunks.
 """
 
 from __future__ import annotations
@@ -37,11 +37,10 @@ def search(
     """Exact-scan top-k: (dist[Q,k] ascending, ids[Q,k]); masked rows get
     (+inf, SENTINEL).
 
-    `approx=True` routes the huge per-chunk reduction through the TPU
-    approximate-top-k unit (recall_target 0.99 per chunk) instead of an
-    O(n log n) sort — the scan stays a full exact *scoring* pass, only
-    the within-chunk candidate selection is approximate.  The sort-based
-    per-chunk top_k was 5x slower than the matmul it follows.
+    `approx=True` routes the huge per-chunk reduction through
+    `lax.approx_min_k` (recall_target 0.99 per chunk).  On a GPU, JAX
+    lowers it as sort-and-slice, so the selection is exact there; the
+    scan is a full exact *scoring* pass either way.
     """
 
     def chunk_topk(d, kk):

@@ -1,6 +1,6 @@
 """Batched incremental graph construction (insert / delete).
 
-TPU replacement for usearch's `add` / `remove` (reference:
+Device replacement for usearch's `add` / `remove` (reference:
 src/index/usearch.rs:174-249).  The CPU library inserts one vector at a
 time under a RwLock; here a whole block of M new vectors is grafted into
 the graph by one jitted functional step with donated buffers:
@@ -11,7 +11,7 @@ the graph by one jitted functional step with donated buffers:
   2. robust prune (DiskANN-style α rule) selects ≤R diverse forward
      neighbours per new node — a vectorised `lax.scan` over the sorted
      candidate pool with the candidate-pairwise distances done as one
-     batched MXU matmul;
+     batched matmul;
   3. forward edges + cached edge lengths written with row scatters;
   4. reverse edges applied in `G` collision-free rounds: edges are sorted
      by target, ranked within each target run, and round r applies rank-r
@@ -169,21 +169,17 @@ def insert_cfg(cfg: GraphConfig) -> GraphConfig:
     """Search configuration used for insert-time candidate generation.
 
     WIDE and SHALLOW (beam 16, pool ef_add/2, 4 rounds) where the
-    serving beam is narrow and deep (4 × 32).  Two findings behind it
-    (r5 on-chip A/B at 65k×768, warm compiles):
+    serving beam is narrow and deep (4 × 32).  Two reasons, both found
+    on another accelerator and not yet re-measured on the GPU:
 
-    * the insert search is gather-DESCRIPTOR-bound, not byte-bound (a
-      bf16 bank builds at the same rate as f32), so wall-clock tracks
-      gathered-row count ≈ beam·degree·iters — fewer/wider rounds and a
-      smaller pool are nearly free speed;
+    * the insert search was gather-count-bound, not byte-bound, so
+      wall-clock tracks gathered-row count ≈ beam·degree·iters — fewer,
+      wider rounds and a smaller pool are nearly free speed;
     * prune quality does NOT need a deep insert search: `insert_impl`
       prunes over min(ef_add, P+M) candidates drawn from the graph pool
       UNION the M×M batch block, so halving the search pool leaves the
-      prune's candidate count unchanged.  Measured: pool 64/4 rounds
-      builds 5,290 v/s vs 2,370 (old 128-pool × 32 narrow rounds) at
-      IDENTICAL post-build recall (0.9836 @ ef=64); beam 8 reaches
-      8,753 v/s at −0.003 recall (not taken — builds are not the
-      serving bottleneck).
+      prune's candidate count unchanged (post-build recall was
+      unchanged).
 
     The reference's expansion_add knob still scales the whole thing
     (usearch.rs: insert beam role): pool = ef_add/2, floor 32.
@@ -359,10 +355,10 @@ upload = functools.partial(jax.jit, static_argnames=("cfg",), donate_argnums=(0,
 # Incremental insertion builds each node's edges against the graph *as it
 # existed at insert time*, so early nodes never see later arrivals and
 # edge quality is bounded by insert-order luck.  The refinement sweep is
-# the TPU-idiomatic fix (no counterpart in usearch, which mutates one
+# the batched fix (no counterpart in usearch, which mutates one
 # node at a time): for a block of nodes, take the 2-hop neighbourhood
 # (R + R² candidates via two adjacency gathers), score it with one
-# batched MXU matmul, α-prune to R, and rewrite the block's rows.  A pass
+# batched matmul, α-prune to R, and rewrite the block's rows.  A pass
 # over all nodes is a handful of large fused steps per block — exactly
 # the shape XLA loves — and one or two passes recover CAGRA-grade edge
 # quality from any half-decent initial graph.

@@ -1,16 +1,16 @@
-"""Centroid router construction — the HNSW-upper-layers role, TPU-style.
+"""Centroid router construction — the HNSW-upper-layers role, batched.
 
 The reference's usearch HNSW reaches a query's neighbourhood through
 log-many upper graph layers walked serially (src/index/usearch.rs —
 C++ HNSW internals).  Serial pointer descent is the wrong shape for a
-systolic-array machine, and round 1's replacement — one matmul over a
-flat strided sample — stops scaling past ~2M rows/chip (the sample
+matrix machine, and the flat replacement — one matmul over a strided
+sample — stops scaling past ~2M rows per device (the sample
 gather and the [Q, S] distance matrix both grow linearly with the bank).
 
 This module builds the two-level replacement:
 
   centroids [K, D]   k-means centroids of the bank (dense, matmul-scored:
-                     the "upper layers" collapsed into ONE MXU block)
+                     the "upper layers" collapsed into ONE matmul)
   members   [K, Bm]  per-centroid ring of member slot ids (entry
                      candidates; ring-replaced, SENTINEL-padded)
   m_cnt     [K]      total assignments per centroid (ring write cursor)
@@ -22,7 +22,7 @@ beam.  Nothing in the hot path scales with the bank size except the
 centroid count K, which grows ~N/64.
 
 Construction is device-side k-means: sampled init + a few Lloyd
-iterations (assignment = chunked MXU matmuls, update = scatter-add
+iterations (assignment = chunked matmuls, update = scatter-add
 segment means), then a full assignment pass fills the member rings.
 Incremental maintenance happens at insert time (core/build.py calls
 `ring_assign` for every new batch); the router is rebuilt from scratch
@@ -52,11 +52,11 @@ LLOYD_ITERS = 2
 
 
 def route_k_for(rows: int) -> int:
-    """Centroid count policy: ~64 rows per cluster, MXU-aligned, capped.
+    """Centroid count policy: ~64 rows per cluster, a multiple of 128, capped.
 
     At 1M rows → 16K centroids (a [Q, 16K] routing matmul), at 8M → 64K.
     The cap bounds the routing matmul and centroid-bank memory; beyond
-    512M rows/chip the bank itself no longer fits anyway.
+    512M rows per device the bank itself no longer fits anyway.
     """
     k = min(max(rows // 64, 4096), 1 << 16)
     return (k // 128) * 128

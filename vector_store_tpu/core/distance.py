@@ -1,8 +1,9 @@
-"""Distance kernels — MXU matmuls, not scalar loops.
+"""Distance kernels — matmuls, not scalar loops.
 
 The reference delegates all distance math to the C++ usearch library
-(cosine default, f32: reference src/index/usearch.rs:89-96).  On TPU the
-same work is expressed as batched matrix products so it lands on the MXU:
+(cosine default, f32: reference src/index/usearch.rs:89-96).  Here the
+same work is expressed as batched matrix products for the device's
+matrix units:
 
     scores[Q, N] = queries[Q, D] @ bank[N, D]^T           (dot / cosine)
     l2[Q, N]     = |q|^2 + |x|^2 - 2 * scores             (L2)
@@ -22,7 +23,7 @@ import jax.numpy as jnp
 
 Space = str  # "cosine" | "l2" | "dot"
 
-# bf16 accumulated in f32 on the MXU is the TPU-native precision choice.
+# bf16 (or f32) operands accumulated in f32.
 _ACC = jnp.float32
 
 
@@ -46,7 +47,7 @@ def pairwise(
     space: Space,
     bank_sqnorm: jnp.ndarray | None = None,  # [N] optional precomputed |x|^2
 ) -> jnp.ndarray:  # [Q, N] ascending distances, f32
-    """Dense Q×N distance block via one MXU matmul."""
+    """Dense Q×N distance block via one matmul."""
     q = queries
     x = bank
     dots = jax.lax.dot_general(
@@ -76,7 +77,7 @@ def gathered(
 
     This is the beam-search inner product: each query scores its own C
     gathered neighbour vectors.  Expressed as dot_general with a batch
-    dimension so XLA maps it onto the MXU.
+    dimension so XLA maps it onto a batched matmul.
     """
     dots = jax.lax.dot_general(
         cand_vecs,
@@ -102,7 +103,7 @@ def pairwise_int8(
 ) -> jnp.ndarray:
     """Distances against an int8-quantised bank (asymmetric: f32 query).
 
-    The matmul runs with the int8 bank cast to bf16 feeding the MXU; the
+    The matmul runs with the int8 bank cast to bf16; the
     per-row scale is applied to the f32 accumulator.  Memory traffic is the
     win: the 4x smaller bank is what streams from HBM.
     """

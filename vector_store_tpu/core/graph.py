@@ -1,9 +1,10 @@
 """Device-resident ANN graph index — state and lifecycle.
 
-This is the TPU replacement for the reference's C++ usearch HNSW index
-(reference: src/index/usearch.rs:89-99).  Instead of a pointer-chasing
-multi-layer heap structure mutated in place, the index is a set of
-fixed-shape arrays living in HBM, updated functionally by jitted steps:
+This is the device replacement for the reference's C++ usearch HNSW
+index (reference: src/index/usearch.rs:89-99).  Instead of a
+pointer-chasing multi-layer heap structure mutated in place, the index
+is a set of fixed-shape arrays living in device memory, updated
+functionally by jitted steps:
 
   vectors   [C, D]   storage dtype (f32 / bf16 / int8+scale), ingest-
                      preprocessed (unit-norm for cosine space)
@@ -15,10 +16,10 @@ fixed-shape arrays living in HBM, updated functionally by jitted steps:
   size      []       int32 live count (reference count(): usearch.rs:308-311)
   frontier  []       int32 rows allocated so far (host-assigned, sequential)
 
-Design notes (TPU-first, not a translation):
+Design notes (accelerator-first, not a translation):
   * single-layer navigable graph with a *routing stage* instead of HNSW's
     upper layers: each query first scores a strided sample of the bank with
-    one MXU matmul and starts the beam from the best hits.  Hierarchy-free
+    one matmul and starts the beam from the best hits.  Hierarchy-free
     means no serial per-level descent — the whole search is a fixed-trip
     `lax.scan`.
   * capacity is static per compilation; growth is a host-side buffer
@@ -30,7 +31,7 @@ Design notes (TPU-first, not a translation):
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import NamedTuple
 
 import jax
@@ -69,8 +70,8 @@ class GraphState(NamedTuple):
 class GraphConfig:
     """Static (hashable) compile-time configuration of the graph kernels.
 
-    Maps the reference's usearch knobs (src/lib.rs:147-211) onto the TPU
-    design: `connectivity` → degree R, `expansion_search` → beam pool P,
+    Maps the reference's usearch knobs (src/lib.rs:147-211) onto the
+    batched design: `connectivity` → degree R, `expansion_search` → beam pool P,
     `expansion_add` → insert-time pool.
     """
 
@@ -97,18 +98,19 @@ class GraphConfig:
     # tight clusters); the rest are α-diverse (keeps long-range
     # navigability).  0 → pure diversity prune.  Default: half degree.
     keep_nearest: int = -1  # -1 → degree // 2
-    # Use the TPU approximate-top-k unit for the routing reduction and the
-    # sort-free pool merge (recall impact < 0.5%, large latency win).
+    # approx_min_k for the routing reduction and the sort-free pool merge.
+    # On a GPU JAX lowers approx_min_k as sort-and-slice (exact); the
+    # merge is sort-free either way.
     approx_topk: bool = True
-    # Fused DMA gather+score for the expand round (core/graph_pallas.py)
-    # instead of the XLA gather + matvec.  The dataclass default is
-    # False (CPU/interpret backends can't run Mosaic kernels); on a real
-    # TPU `config_from_params` flips it on via `default_fused_gather()`
-    # — measured 6x the XLA expand round at identical recall
-    # (VST_GRAPH_FUSED=0/1 overrides).  Snapshot loads re-derive it for
-    # the loading backend (persist.py) — it is execution policy, not
-    # index data.
-    fused_gather: bool = False
+
+    @classmethod
+    def from_meta(cls, meta: dict, **overrides) -> "GraphConfig":
+        """Config from a snapshot's `cfg` dict.  Keys of retired fields
+        (`fused_gather`, an execution choice older snapshots recorded)
+        are dropped, so old snapshots still load."""
+        names = {f.name for f in fields(cls)}
+        kept = {k: v for k, v in {**meta, **overrides}.items() if k in names}
+        return cls(**kept)
 
     @property
     def n_keep_nearest(self) -> int:
@@ -214,8 +216,8 @@ def gather_vectors(
     """Gather rows in compute dtype, dequantising int8 banks on the fly.
 
     The gather itself moves the narrow (1 byte/dim) representation from
-    HBM; dequantisation happens on-chip, which is the whole point of the
-    int8 mode (BASELINE config 3 memory parity)."""
+    device memory; dequantisation happens after the gather, which is the
+    whole point of the int8 mode (BASELINE config 3 memory parity)."""
     rows, is_sent = gather_rows(state.vectors, ids)
     if cfg.quantized:
         safe = jnp.clip(ids, 0, state.capacity - 1)
@@ -247,7 +249,7 @@ def _routed_entries(
     Unlike the flat path, nothing here gathers O(bank/8) rows per call —
     the centroid bank is dense and stationary, and the per-query member
     gather is ≤ probes × Bm rows.  This is what lets graph recall hold
-    past ~2M rows/chip (the round-1 flat sample's hard cap).
+    past ~2M rows per device (the flat sample's hard cap).
     """
     Q = queries.shape[0]
     K, Bm = state.route_members.shape
@@ -279,10 +281,10 @@ def routing_entries(
     cfg: GraphConfig,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Entry-point selection: score a strided sample of allocated rows with
-    one MXU matmul and return the best `entry_points` per query.
+    one matmul and return the best `entry_points` per query.
 
     This replaces HNSW's upper-layer greedy descent with a single dense
-    block — the TPU-native way to cut graph hops.  With cfg.route_k set,
+    block — a batched way to cut graph hops.  With cfg.route_k set,
     the flat sample gives way to the two-level centroid router.
     Returns (dist[Q, E], ids[Q, E]).
     """

@@ -1,40 +1,20 @@
-"""Fused IVF probe-scan — a Pallas TPU kernel.
+"""IVF probe-scan as a Pallas kernel on the Triton route.
 
-The XLA path (ivf.search_clustered) materializes every gathered cluster
-block to HBM before the scoring matmul reads it back: for each query
-batch the bank bytes are touched ~3x (source read + gather write +
-matmul read).  This kernel streams each probed cluster's VECTOR block
-HBM -> VMEM by async DMA (double-buffered so the copy of the next probe
-overlaps the scoring of the current one), scores it on-chip, and keeps
-the candidate pool in VMEM — the bank's vector bytes cross HBM exactly
-once.
+The XLA path (ivf.search_clustered) gathers every probed bucket into a
+[Q, g, B, D] device-memory transient, widens it to the compute dtype and
+reads it back for the dot: per query it moves about three times the
+p·B·D bank bytes.  This kernel reads each probed bucket once, straight
+from the bank, widens int8 in registers, and writes only the [Q, p·B]
+distance pool; one `lax.top_k` in XLA finishes.
 
-The [K, B] side arrays (scales, rowids) are NOT DMA'd in-kernel: a
-single [1, B] row slice of a 2-D tiled memref violates mosaic's sublane
-alignment, and they are 2 lanes of payload against the vectors' D=768 —
-the wrapper pre-gathers them per probe with plain XLA (<1% of the
-bytes) and they ride in as ordinary VMEM blocks.
-
-Layout (one grid step per GROUP of QG=8 queries — pallas wants >=8
-sublanes per block, and the group amortizes program overhead):
-
-  grid            (Q/QG,)
-  scalar-prefetch cids [Q, p] int32    probed cluster per (query, rank)
-  inputs          q     [Q, D] f32     preprocessed queries (block [QG, D])
-                  vectors [K, B, D]    storage dtype, stays in HBM
-                  scl_g [Q/QG, QG, p, B] f32   pre-gathered dequant scales
-                  rid_g [Q/QG, QG, p, B] i32   pre-gathered rowids
-                                               (SENTINEL where dead)
-  outputs         dist [Q, k] f32, rid [Q, k] i32 (blocks [QG, k])
-  scratch         2 x [B, D] vector block, DMA sems, cand pool
-                  [QG, p*B] distances
-
-The probe sequence is FULLY unrolled (QG * p static steps): all scratch
-indices become compile-time constants — no dynamic-index alignment
-proofs — and the DMA for step s+1 is issued before step s's scoring.
-Reference role: this replaces the usearch query hot loop
-(src/index/usearch.rs:274-277) at the 1M-100M tier; same contract as
-ivf.search_clustered.
+Grid (Q, p): program (i, r) scores query i against its r-th probed
+cluster.  It loads the cluster id from `cids` and that bucket's live-row
+bound (`live_rows`), walks the bucket in TB-row tiles and D in DC-wide
+chunks — both powers of two, masked at the edges, so any D works — and
+stores TB distances per tile.  Rows past the live bound are never read
+(buckets carry 1.5x slack, so this halves the bytes at bulk-load
+occupancy) and come out +inf, as do tombstoned rows (SENTINEL rowid).
+Same contract as ivf.search_clustered.
 """
 
 from __future__ import annotations
@@ -44,592 +24,105 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-# Python scalars, not jnp constants: a pallas kernel may not capture
-# traced device constants from module scope.
+# Python scalars: a Pallas kernel may not capture device constants.
 INF = float("inf")
 SENTINEL = 2**31 - 1
 
-QG = 8  # queries per grid step (sublane-aligned block)
-# DMA ring depth: how many probe blocks are in flight at once.  Depth 2
-# is classic double-buffering; deeper rings hide DMA issue latency when
-# the per-block score time is shorter than the copy (VMEM cost is
-# NBUF * B * D storage bytes).
-NBUF = 4
-# Live-prefix sub-block: each probed bucket is DMA'd as ceil(used/SB)
-# copies of SB rows instead of the full padded B.  Buckets are sized
-# with 1.5x slack for churn headroom (ivf.bucket_for), so at bulk-load
-# occupancy (~45-67%) this cuts the streamed bytes by 1.4-1.9x.  128 is
-# tile-aligned for every storage dtype (f32 8x128 / bf16 16x128 /
-# int8+packed-int4 32x128) and divides every bucket width (bucket_for
-# rounds to 128).  Lanes beyond the live prefix are never copied; they
-# hold stale VMEM garbage and are masked to INF via the rowid
-# sentinels, which cover exactly the same slots.
-#
-# Measured on-chip (r4, bucket 640, p=2): an adaptive sb=B//2 variant
-# (fewer, bigger issues) ran ~5-10% SLOWER than fixed 128 — the byte
-# waste at high occupancy beats the per-issue saving, so 128 stays.
-SB = 128
+# Rows per tile.  bucket_for keeps B a multiple of 128, so TB divides it.
+TB = 64
+# Widest D chunk; narrower banks use the next power of two ≥ D.
+DC_MAX = 256
+NUM_WARPS = 4
+NUM_STAGES = 2
 
 
-def sub_block_rows(bucket: int) -> int:
-    """DMA sub-copy height for a bucket of `bucket` rows (see above)."""
-    return SB
-
-
-def live_prefix_blocks(valid: jnp.ndarray, block: int | None = None) -> jnp.ndarray:
-    """Per-cluster count of sub-blocks covering the live rows:
-    ceil((last live slot + 1) / block).  [K] i32; 0 for empty buckets.
-    `block` defaults to sub_block_rows(B) and must match the kernel's."""
+def live_rows(valid: jnp.ndarray) -> jnp.ndarray:
+    """Per-cluster live-row bound: last live slot + 1 ([K] i32, 0 when
+    the bucket is empty).  Slots past it are never valid."""
     K, B = valid.shape
-    if block is None:
-        block = sub_block_rows(B)
     lane = jax.lax.broadcasted_iota(jnp.int32, (K, B), 1)
-    upper = jnp.max(jnp.where(valid, lane + 1, 0), axis=1)
-    return (upper + block - 1) // block
+    return jnp.max(jnp.where(valid, lane + 1, 0), axis=1)
 
 
-def _dma_ring(cids_ref, nsb_ref, vec_hbm, vbuf, sems, gi, qg, sb):
-    """start/wait pair for the live-prefix DMA ring: bucket (l, r) of
-    grid step gi is copied as nsb[c] sub-copies of sb rows into ring
-    slot `slot` (every sub-copy signals the slot's semaphore once; the
-    wait loop reconstructs and waits each)."""
-
-    def mk(slot, c, sub):
-        off = pl.multiple_of(sub * sb, sb)
-        return pltpu.make_async_copy(
-            vec_hbm.at[c, pl.ds(off, sb), :],
-            vbuf.at[slot, pl.ds(off, sb), :],
-            sems.at[slot],
-        )
-
-    def start(slot, l, r):
-        c = cids_ref[gi * qg + l, r]
-
-        def _issue(sub, carry):
-            mk(slot, c, sub).start()
-            return carry
-
-        jax.lax.fori_loop(0, nsb_ref[c], _issue, None)
-
-    def wait(slot, l, r):
-        c = cids_ref[gi * qg + l, r]
-
-        def _wait(sub, carry):
-            mk(slot, c, sub).wait()
-            return carry
-
-        jax.lax.fori_loop(0, nsb_ref[c], _wait, None)
-
-    return start, wait
-
-
-def _kernel(cids_ref, nsb_ref, q_ref, vec_hbm, scl_ref, rid_ref, out_d, out_r,
-            *, p: int, k: int, space: str, quantized: bool, qg: int = QG,
-            nbuf: int = NBUF, score: str = "f32"):
-    B = vec_hbm.shape[1]
-    gi = pl.program_id(0)
-
-    sb = sub_block_rows(B)
-
-    def body(vbuf, cand_d, sems):
-        dma_start, dma_wait = _dma_ring(
-            cids_ref, nsb_ref, vec_hbm, vbuf, sems, gi, qg, sb
-        )
-
-        steps = [(l, r) for l in range(qg) for r in range(p)]
-        depth = min(nbuf, len(steps))
-        for s in range(depth - 1):
-            dma_start(s % nbuf, *steps[s])
-
-        for s, (l, r) in enumerate(steps):
-            slot = s % nbuf
-            if s + depth - 1 < len(steps):
-                dma_start((s + depth - 1) % nbuf, *steps[s + depth - 1])
-            dma_wait(slot, l, r)
-
-            sc = scl_ref[0, l, r, :]  # [B] — static indices
-            if score == "stub":
-                # ablation mode (scripts/probe_fused_sweep.py --score
-                # stub): touch one lane column of the landed block so
-                # the DMA isn't dead-code-eliminated, skip the dot —
-                # measures the kernel's DMA + overhead floor.
-                d = vbuf[slot][:, 0].astype(jnp.float32) * sc
-            elif score == "qi8":
-                # rows AND query stay int8, so the dot rides the MXU's
-                # s8xs8->s32 path and the [B, D] int8->f32 cast — the
-                # VPU cost that dominates the f32 path at these shapes —
-                # disappears.  The query's own quantization scale is
-                # folded into scl_ref by the wrapper, so `sc`
-                # dequantizes both sides at once.  cosine/dot only
-                # (wrapper-enforced); the query arrives as rounded i32.
-                # Mosaic's s8 lowering rejects the 1-column matvec form
-                # (compiler crash, r4 on-chip probe) — an 8-column RHS
-                # with the query in column 0 costs the same MXU passes
-                # and compiles.
-                qv = q_ref[l, :]  # [D] i32
-                dd = qv.shape[0]
-                qm = jnp.where(
-                    jax.lax.broadcasted_iota(jnp.int32, (dd, 8), 1) == 0,
-                    qv[:, None],
-                    0,
-                ).astype(jnp.int8)
-                dots = jnp.dot(
-                    vbuf[slot], qm, preferred_element_type=jnp.int32
-                )[:, 0].astype(jnp.float32) * sc
-                d = -dots if space == "dot" else 1.0 - dots
-            elif score == "bf16":
-                # rows cast int8->bf16 (exact: |v| <= 127), dot as a
-                # bf16 MXU matmul with f32 accumulate, query rounded
-                # f32->bf16.  Same 8-column RHS trick as qi8 (Mosaic
-                # rejects non-f32 matvecs).  Measured on-chip (r4,
-                # bucket 640, p=2): ~245k QPS vs the f32 matvec's
-                # ~275-310k (and qi8's 146k) at equal recall — the
-                # [D, 8] matmul form loses to the f32 matvec lowering,
-                # so this stays an ablation mode, not the default.
-                # cosine/dot only (wrapper-enforced).
-                qv = q_ref[l, :]  # [D] f32
-                dd = qv.shape[0]
-                qm = jnp.where(
-                    jax.lax.broadcasted_iota(jnp.int32, (dd, 8), 1) == 0,
-                    qv[:, None],
-                    0.0,
-                ).astype(jnp.bfloat16)
-                dots = jnp.dot(
-                    vbuf[slot].astype(jnp.bfloat16),
-                    qm,
-                    preferred_element_type=jnp.float32,
-                )[:, 0] * sc
-                d = -dots if space == "dot" else 1.0 - dots
-            else:
-                x = vbuf[slot].astype(jnp.float32)  # [B, D]
-                qv = q_ref[l, :]  # [D] — static sublane pick
-                dots = jnp.dot(x, qv, preferred_element_type=jnp.float32)
-                if quantized:
-                    dots = dots * sc
-                if space == "l2":
-                    # stored rows are raw; ||x||^2 needs the block too
-                    x_sq = jnp.sum(x * x, axis=-1)
-                    if quantized:
-                        x_sq = x_sq * sc * sc
-                    q_sq = jnp.sum(qv * qv)
-                    d = q_sq + x_sq - 2.0 * dots
-                elif space == "dot":
-                    d = -dots
-                else:  # cosine: rows normalized, dist = 1 - cos
-                    d = 1.0 - dots
-            rid = rid_ref[0, l, r, :]
-            d = jnp.where(rid == SENTINEL, INF, d)
-            cand_d[l, r * B : (r + 1) * B] = d
-
-        # k extract-min passes per query over the pooled candidates —
-        # also unrolled (k is static); outputs assembled as values and
-        # stored once as full blocks
-        pool = cand_d[:, :]  # [qg, p*B]
-        rids = rid_ref[0].reshape(qg, p * B)
-        lane = jax.lax.broadcasted_iota(jnp.int32, pool.shape, 1)
-        outs_d, outs_r = [], []
-        for _ in range(k):
-            best = jnp.min(pool, axis=-1)  # [QG]
-            idx = jnp.argmin(pool, axis=-1)
-            knock = lane == idx[:, None]
-            take = jnp.max(jnp.where(knock, rids, 0), axis=-1)
-            outs_d.append(best)
-            outs_r.append(jnp.where(best < INF, take, SENTINEL))
-            pool = jnp.where(knock, INF, pool)
-        out_d[:, :] = jnp.stack(outs_d, axis=1)
-        out_r[:, :] = jnp.stack(outs_r, axis=1).astype(jnp.int32)
-
-    pl.run_scoped(
-        body,
-        vbuf=pltpu.VMEM((nbuf, B, vec_hbm.shape[2]), vec_hbm.dtype),
-        cand_d=pltpu.VMEM((qg, p * B), jnp.float32),
-        sems=pltpu.SemaphoreType.DMA((nbuf,)),
-    )
-
-
-def _pool_kernel(cids_ref, nsb_ref, q_ref, vec_hbm, scl_ref, rid_ref, out_d,
-                 *, p: int, space: str, quantized: bool, packed: bool,
-                 qg: int, nbuf: int):
-    """Pool-mode probe-scan: same DMA ring as `_kernel`, but the output
-    is the RAW per-candidate distance pool [qg, p*B] (INF where dead)
-    instead of an on-chip top-k.  Two uses:
-
-      * the int4 coarse stage of the two-stage scan (`packed=True`: the
-        HBM block is a [B, D/2] nibble-packed bank, unpacked on-chip —
-        half the stream bytes of int8), whose pool feeds an XLA top-C +
-        exact rescore;
-      * large-k serving (the in-kernel top-k is k serial extract-min
-        sweeps — linear in k; the pool + `approx_min_k` path is not).
-    """
-    B = vec_hbm.shape[1]
-    gi = pl.program_id(0)
-
-    sb = sub_block_rows(B)
-
-    def body(vbuf, sems):
-        dma_start, dma_wait = _dma_ring(
-            cids_ref, nsb_ref, vec_hbm, vbuf, sems, gi, qg, sb
-        )
-
-        steps = [(l, r) for l in range(qg) for r in range(p)]
-        depth = min(nbuf, len(steps))
-        for s in range(depth - 1):
-            dma_start(s % nbuf, *steps[s])
-
-        for s, (l, r) in enumerate(steps):
-            slot = s % nbuf
-            if s + depth - 1 < len(steps):
-                dma_start((s + depth - 1) % nbuf, *steps[s + depth - 1])
-            dma_wait(slot, l, r)
-
-            if packed:
-                # split-layout nibbles (core/quantize.py): byte j holds
-                # dim j (low) and dim j + D/2 (high).  Sign-extend via
-                # int32 shift pairs; lane-concat restores dim order.
-                xi = vbuf[slot].astype(jnp.int32)  # [B, D/2]
-                lo = jax.lax.shift_right_arithmetic(
-                    jax.lax.shift_left(xi, 28), 28
-                )
-                hi = jax.lax.shift_right_arithmetic(
-                    jax.lax.shift_left(xi, 24), 28
-                )
-                x = jnp.concatenate([lo, hi], axis=-1).astype(jnp.float32)
-            else:
-                x = vbuf[slot].astype(jnp.float32)  # [B, D]
-            qv = q_ref[l, :]  # [D]
-            dots = jnp.dot(x, qv, preferred_element_type=jnp.float32)
-            sc = scl_ref[0, l, r, :]  # [B]
-            if packed:
-                sc = sc * (127.0 / 7.0)  # derived-code scale (quantize.py)
-            if quantized or packed:
-                dots = dots * sc
+def _kernel(cids_ref, nlive_ref, q_ref, vec_ref, scl_ref, rid_ref, out_ref,
+            *, space: str, quantized: bool, tb: int, dc: int):
+    i = pl.program_id(0)
+    r = pl.program_id(1)
+    B, D = vec_ref.shape[1], vec_ref.shape[2]
+    c = cids_ref[i, r]
+    n = nlive_ref[c]
+    # traced zero: chunk starts past D are masked, and only a dynamic
+    # start may overrun the static shape
+    zero = i * 0
+    chunks = []
+    for d0 in range(0, D, dc):
+        cm = d0 + jnp.arange(dc) < D
+        qv = plgpu.load(q_ref.at[i, pl.ds(zero + d0, dc)], mask=cm, other=0.0)
+        chunks.append((d0, cm, qv))
+    for t0 in range(0, B, tb):
+        rows = t0 + jnp.arange(tb)
+        live = rows < n
+        dots = jnp.zeros((tb,), jnp.float32)
+        x_sq = jnp.zeros((tb,), jnp.float32)
+        for d0, cm, qv in chunks:
+            x = plgpu.load(
+                vec_ref.at[c, pl.ds(t0, tb), pl.ds(zero + d0, dc)],
+                mask=live[:, None] & cm[None, :],
+                other=0,
+            ).astype(jnp.float32)
+            dots += jnp.sum(x * qv[None, :], axis=1)
             if space == "l2":
-                x_sq = jnp.sum(x * x, axis=-1)
-                if quantized or packed:
-                    x_sq = x_sq * sc * sc
-                q_sq = jnp.sum(qv * qv)
-                d = q_sq + x_sq - 2.0 * dots
-            elif space == "dot":
-                d = -dots
-            else:  # cosine
-                d = 1.0 - dots
-            rid = rid_ref[0, l, r, :]
-            d = jnp.where(rid == SENTINEL, INF, d)
-            out_d[l, r * B : (r + 1) * B] = d
-
-    pl.run_scoped(
-        body,
-        vbuf=pltpu.VMEM((nbuf, B, vec_hbm.shape[2]), vec_hbm.dtype),
-        sems=pltpu.SemaphoreType.DMA((nbuf,)),
-    )
+                x_sq += jnp.sum(x * x, axis=1)
+        if quantized:
+            sc = plgpu.load(scl_ref.at[c, pl.ds(t0, tb)], mask=live, other=1.0)
+            dots = dots * sc
+            x_sq = x_sq * sc * sc
+        if space == "l2":
+            q_sq = sum(jnp.sum(qv * qv) for _, _, qv in chunks)
+            d = q_sq + x_sq - 2.0 * dots
+        elif space == "dot":
+            d = -dots
+        else:  # cosine: rows and queries are unit-norm
+            d = 1.0 - dots
+        rid = plgpu.load(rid_ref.at[c, pl.ds(t0, tb)], mask=live, other=SENTINEL)
+        d = jnp.where(live & (rid != SENTINEL), d, INF)
+        plgpu.store(out_ref.at[i, pl.ds(r * B + t0, tb)], d)
 
 
-def pool_scan_fused(
-    vectors: jnp.ndarray,  # [K, B, D'] bank (D' = D/2 uint8 when packed)
-    scales: jnp.ndarray,  # [K, B] f32 int8-code scales
-    rowid_masked: jnp.ndarray,  # [K, B] i32, SENTINEL where dead
-    queries_prep: jnp.ndarray,  # [Q, D] f32 preprocessed, Q % qg == 0
-    cids: jnp.ndarray,  # [Q, p] i32 probed clusters
-    space: str,
-    probes: int,
-    quantized: bool,
-    packed: bool,
-    interpret: bool = False,
-    qg: int | None = None,
-    nbuf: int = NBUF,
-    nsb: jnp.ndarray | None = None,  # [K] i32 live-prefix sub-blocks
-) -> jnp.ndarray:
-    """Fused probe-scan returning the distance pool [Q, p*B] f32.
-
-    Pool lane (r*B + j) of query q scores row (cids[q, r], j); callers
-    map pool positions back to bank slots via the same cids.  Unjitted —
-    composes inside a caller's jit (ivf.search_two_stage).  `nsb` (from
-    `live_prefix_blocks(valid)`) bounds each bucket's DMA to its live
-    prefix; None streams the full padded width."""
-    Q, D = queries_prep.shape
-    if qg is None:
-        qg = 16 if Q % 16 == 0 else QG
-    if Q % qg:
-        raise ValueError(f"query batch must be a multiple of {qg}, got {Q}")
-    p = probes
-    K, B = vectors.shape[0], vectors.shape[1]
-    if nsb is None:
-        nsb = jnp.full((K,), -(-B // sub_block_rows(B)), jnp.int32)
-
-    scl_g = jnp.take(scales, cids, axis=0).reshape(Q // qg, qg, p, B)
-    rid_g = jnp.take(rowid_masked, cids, axis=0).reshape(Q // qg, qg, p, B)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(Q // qg,),
-        in_specs=[
-            pl.BlockSpec(
-                (qg, D), lambda g, cids, nsb: (g, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            pl.BlockSpec(
-                (1, qg, p, B),
-                lambda g, cids, nsb: (g, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, qg, p, B),
-                lambda g, cids, nsb: (g, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (qg, p * B), lambda g, cids, nsb: (g, 0), memory_space=pltpu.VMEM
-        ),
-    )
-    kern = functools.partial(
-        _pool_kernel,
-        p=p,
-        space=space,
-        quantized=quantized,
-        packed=packed,
-        qg=qg,
-        nbuf=nbuf,
-    )
-    return pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((Q, p * B), jnp.float32),
-        interpret=interpret,
-    )(
-        cids,
-        nsb.astype(jnp.int32),
-        queries_prep.astype(jnp.float32),
-        vectors,
-        scl_g,
-        rid_g,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "space", "k", "probes", "quantized", "interpret", "qg", "nbuf",
-        "score",
-    ),
-)
-def search_fused(
+def probe_scan(
     vectors: jnp.ndarray,  # [K, B, D] storage dtype
-    scales: jnp.ndarray,  # [K, B] f32
-    rowid_masked: jnp.ndarray,  # [K, B] i32, SENTINEL where dead
-    queries_prep: jnp.ndarray,  # [Q, D] f32 preprocessed, Q % qg == 0
+    scales: jnp.ndarray,  # [K, B] f32 int8 dequant scales
+    rid_masked: jnp.ndarray,  # [K, B] i32, SENTINEL where dead
+    nlive: jnp.ndarray,  # [K] i32 live-row bound (live_rows)
+    q: jnp.ndarray,  # [Q, D] f32 preprocessed queries
     cids: jnp.ndarray,  # [Q, p] i32 probed clusters
     space: str,
-    k: int,
-    probes: int,
-    quantized: bool,
     interpret: bool = False,
-    qg: int | None = None,
-    nbuf: int = NBUF,
-    nsb: jnp.ndarray | None = None,  # [K] i32 live-prefix sub-blocks
-    score: str = "f32",  # "f32" | "qi8" (s8xs8 MXU dot) | "stub" (ablation)
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    Q, D = queries_prep.shape
-    if qg is None:
-        # wider groups measured ~4% faster at 1M x 768 int8 p=4 (on-chip
-        # sweep, scripts/probe_fused_sweep.py); small batches need qg=8
-        qg = 16 if Q % 16 == 0 else QG
-    if Q % qg:
-        raise ValueError(f"query batch must be a multiple of {qg}, got {Q}")
-    p = probes
-    K, B = vectors.shape[0], vectors.shape[1]
-    if nsb is None:
-        nsb = jnp.full((K,), -(-B // sub_block_rows(B)), jnp.int32)
-
-    # pre-gather the 2-lane side arrays per probe (XLA gather; <1% of the
-    # vector-block bytes) and group them to match the grid blocks
-    scl = jnp.take(scales, cids, axis=0)  # [Q, p, B]
-    if score == "qi8":
-        if space == "l2" or not quantized:
-            raise ValueError("score='qi8' needs int8 rows and cosine/dot")
-        # symmetric per-query int8 quantization; the scale folds into the
-        # per-row dequant scales so the kernel needs no extra operand
-        qs = jnp.maximum(jnp.max(jnp.abs(queries_prep), axis=1), 1e-30)
-        qs = qs / 127.0  # [Q]
-        q_in = jnp.clip(
-            jnp.round(queries_prep / qs[:, None]), -127, 127
-        ).astype(jnp.int32)
-        scl = scl * qs[:, None, None]
-    else:
-        if score == "bf16" and (space == "l2" or not quantized):
-            raise ValueError("score='bf16' needs int8 rows and cosine/dot")
-        q_in = queries_prep.astype(jnp.float32)
-    scl_g = scl.reshape(Q // qg, qg, p, B)
-    rid_g = jnp.take(rowid_masked, cids, axis=0).reshape(Q // qg, qg, p, B)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(Q // qg,),
-        in_specs=[
-            pl.BlockSpec(
-                (qg, D), lambda g, cids, nsb: (g, 0), memory_space=pltpu.VMEM
-            ),
-            # the vector bank MUST stay in HBM (it is the stream source)
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            pl.BlockSpec(
-                (1, qg, p, B),
-                lambda g, cids, nsb: (g, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, qg, p, B),
-                lambda g, cids, nsb: (g, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (qg, k), lambda g, cids, nsb: (g, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (qg, k), lambda g, cids, nsb: (g, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-    )
+) -> jnp.ndarray:
+    """Distance pool [Q, p·B] f32: lane r·B + j scores row (cids[q, r], j).
+    Unjitted — composes inside the caller's jit."""
+    Q, p = cids.shape
+    K, B, D = vectors.shape
+    if B % TB:
+        raise ValueError(f"bucket width {B} is not a multiple of {TB}")
+    dc = min(DC_MAX, pl.next_power_of_2(D))
     kern = functools.partial(
-        _kernel, p=p, k=k, space=space, quantized=quantized, qg=qg, nbuf=nbuf,
-        score=score,
+        _kernel,
+        space=space,
+        quantized=vectors.dtype == jnp.int8,
+        tb=TB,
+        dc=dc,
     )
     return pl.pallas_call(
         kern,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((Q, k), jnp.float32),
-            jax.ShapeDtypeStruct((Q, k), jnp.int32),
-        ],
+        out_shape=jax.ShapeDtypeStruct((Q, p * B), jnp.float32),
+        grid=(Q, p),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES
+        ),
         interpret=interpret,
-    )(
-        cids,
-        nsb.astype(jnp.int32),
-        q_in,
-        vectors,
-        scl_g,
-        rid_g,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "space", "k", "probes", "interpret", "qg", "nbuf", "live_prefix"
-    ),
-)
-def search_clustered_pool(
-    state,  # IvfState pytree
-    queries: jnp.ndarray,  # [Q, D] raw f32, Q % qg == 0
-    space: str,
-    k: int,
-    probes: int,
-    interpret: bool = False,
-    qg: int | None = None,
-    nbuf: int = NBUF,
-    live_prefix: bool = True,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Large-k fused path: pool-mode kernel + one XLA top-k.
-
-    `search_clustered_fused`'s in-kernel top-k is k serial extract-min
-    sweeps (O(k) vector ops — FUSED_MAX_K caps it); here the kernel
-    emits the raw [Q, p*B] pool (16MB at Q=2048, p=8, B=256 — noise
-    next to the scanned bank bytes) and the logarithmic XLA reduction
-    finishes.  Same contract as ivf.search_clustered, any k."""
-    from . import distance as dist_mod
-    from .topk import topk_ascending
-
-    cdt = state.centroids.dtype
-    K, B, _ = state.vectors.shape
-    p = min(probes, K)
-    Q = queries.shape[0]
-    qf = dist_mod.preprocess(queries.astype(jnp.float32), space)
-    cd = dist_mod.pairwise(qf.astype(cdt), state.centroids, space)
-    if K >= (1 << 14):
-        _, cids = jax.lax.approx_min_k(cd, p, recall_target=0.999)
-    else:
-        _, cids = jax.lax.top_k(-cd, p)
-    cids = cids.astype(jnp.int32)
-    rid_masked = jnp.where(state.valid, state.rowid, SENTINEL)
-    pool = pool_scan_fused(
-        state.vectors,
-        state.scales,
-        rid_masked,
-        qf,
-        cids,
-        space,
-        p,
-        quantized=state.vectors.dtype == jnp.int8,
-        packed=False,
-        interpret=interpret,
-        qg=qg,
-        nbuf=nbuf,
-        nsb=live_prefix_blocks(state.valid) if live_prefix else None,
-    )  # [Q, p*B]
-    rids = jnp.take(rid_masked, cids, axis=0).reshape(Q, p * B)
-    kk = min(k, p * B)
-    top_d, pos = topk_ascending(pool, kk)
-    top_r = jnp.take_along_axis(rids, pos, axis=-1)
-    top_r = jnp.where(jnp.isinf(top_d), SENTINEL, top_r)
-    if k > kk:
-        top_d = jnp.pad(top_d, ((0, 0), (0, k - kk)), constant_values=INF)
-        top_r = jnp.pad(top_r, ((0, 0), (0, k - kk)), constant_values=SENTINEL)
-    return top_d, top_r
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "space", "k", "probes", "interpret", "qg", "nbuf", "live_prefix",
-        "score",
-    ),
-)
-def search_clustered_fused(
-    state,  # IvfState pytree
-    queries: jnp.ndarray,  # [Q, D] raw f32, Q % qg == 0
-    space: str,
-    k: int,
-    probes: int,
-    interpret: bool = False,
-    qg: int | None = None,
-    nbuf: int = NBUF,
-    live_prefix: bool = True,
-    score: str = "f32",
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """One-dispatch fused clustered search: preprocess + centroid route +
-    fused probe-scan kernel.  Same contract as ivf.search_clustered.
-    `live_prefix=False` streams full padded buckets (A/B baseline);
-    `score='qi8'` (int8 rows, cosine/dot only) also quantizes the query
-    so the in-kernel dot runs s8xs8 on the MXU; `score='stub'` is the
-    probe-only DMA-floor ablation."""
-    from . import distance as dist_mod
-
-    cdt = state.centroids.dtype
-    K = state.vectors.shape[0]
-    p = min(probes, K)
-    qf = dist_mod.preprocess(queries.astype(jnp.float32), space)
-    cd = dist_mod.pairwise(qf.astype(cdt), state.centroids, space)
-    if K >= (1 << 14):
-        _, cids = jax.lax.approx_min_k(cd, p, recall_target=0.999)
-    else:
-        _, cids = jax.lax.top_k(-cd, p)
-    rid_masked = jnp.where(state.valid, state.rowid, SENTINEL)
-    return search_fused(
-        state.vectors,
-        state.scales,
-        rid_masked,
-        qf,
-        cids.astype(jnp.int32),
-        space,
-        k,
-        p,
-        quantized=state.vectors.dtype == jnp.int8,
-        interpret=interpret,
-        qg=qg,
-        nbuf=nbuf,
-        nsb=live_prefix_blocks(state.valid) if live_prefix else None,
-        score=score,
-    )
+        name="ivf_probe_scan",
+    )(cids, nlive, q.astype(jnp.float32), vectors, scales, rid_masked)

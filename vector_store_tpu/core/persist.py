@@ -81,13 +81,7 @@ def load(path: str) -> tuple[SlotIndex, dict]:
         if meta["format"] != FORMAT_VERSION:
             raise ValueError(f"unsupported snapshot format {meta['format']}")
         params = IndexParams(**meta["params"])
-        # fused_gather is a backend-local execution choice, not index
-        # data: a TPU-written snapshot must load on CPU (and vice versa)
-        from .index import default_fused_gather
-
-        cfg = GraphConfig(
-            **{**meta["cfg"], "fused_gather": default_fused_gather()}
-        )
+        cfg = GraphConfig.from_meta(meta["cfg"])
         exact = meta.get("exact", False)
         # older snapshots predate the insert_block field: re-derive the
         # block size SlotIndex.__init__ would have chosen for the mode
@@ -99,13 +93,7 @@ def load(path: str) -> tuple[SlotIndex, dict]:
         else:  # pre-router snapshot: dummy arrays, flat routing
             from .graph import init_router
 
-            cfg = GraphConfig(
-                **{
-                    **meta["cfg"],
-                    "route_k": 0,
-                    "fused_gather": default_fused_gather(),
-                }
-            )
+            cfg = GraphConfig.from_meta(meta["cfg"], route_k=0)
             rc, rm, rn = init_router(cfg)
         state = GraphState(
             vectors=jnp.asarray(z["vectors"]).astype(cfg.jdtype),

@@ -36,8 +36,7 @@ def dequantize_rows(q: jnp.ndarray, scale: jnp.ndarray) -> jnp.ndarray:
 # probe-scan streams 0.5 byte/dim from HBM, then the survivors are
 # rescored against the int8 rows.  Packing uses a SPLIT layout — byte j
 # holds dim j in its low nibble and dim j + D/2 in its high nibble — so
-# on-chip unpacking is two shifts and one concat, no interleave shuffle
-# (TPU lane permutes are expensive; concatenation along lanes is free).
+# unpacking is two shifts and one concat, no interleave shuffle.
 #
 # The int4 codes are derived FROM the int8 codes (not the f32 source):
 # q4 = round(q8 * 7 / 127), scale4 = scale8 * 127 / 7.  Deriving keeps

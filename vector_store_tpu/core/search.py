@@ -1,6 +1,6 @@
 """Batched beam search over the device-resident graph.
 
-TPU replacement for usearch's C++ HNSW traversal (reference:
+Device replacement for usearch's C++ HNSW traversal (reference:
 src/index/usearch.rs:274-277 — `idx.search` on a rayon pool).  The CPU
 version walks one query at a time through pointer chains; here a whole
 block of queries advances in lockstep through a fixed number of
@@ -9,7 +9,7 @@ expand-gather-score-merge rounds:
   per round (lax.scan body, all shapes static):
     1. pick the best `B` unexpanded pool entries per query        (top_k)
     2. gather their adjacency rows            neighbors[sel] → [Q, B*R]
-    3. gather candidate vectors + batched mat-vec distances        (MXU)
+    3. gather candidate vectors + batched mat-vec distances
     4. sort-based dedup + merge into the per-query pool         (topk.py)
 
 The pool doubles as the visited set: merge_pool keeps the expanded flag of
@@ -71,29 +71,8 @@ def _expand_round(state: GraphState, queries: jnp.ndarray, cfg: GraphConfig, poo
     cand_ids = nbrs.reshape(Q, B * R)
 
     # 4. gather vectors, score, mask sentinels.
-    # The fused kernel DMAs [T, D] blocks out of the HBM bank; Mosaic
-    # requires the lane (minor) dim of a DMA slice to be 128-aligned, so
-    # a D % 128 != 0 index (e.g. D=64) must take the XLA path even when
-    # the config asks for fused (the config default is backend-wide).
-    if cfg.fused_gather and queries.shape[-1] % 128 == 0:
-        # fused DMA gather+score (core/graph_pallas.py): the [Q, B*R, D]
-        # gather transient never hits HBM.  One grid step per query, so
-        # any batch shape works (the r3 kernel needed Q % 8 == 0).
-        from .graph_pallas import gather_score_fused
-
-        is_sent = cand_ids >= state.capacity  # SENTINEL clips high
-        safe = jnp.clip(cand_ids, 0, state.capacity - 1)
-        cand_dist = gather_score_fused(
-            state.vectors,
-            state.scales,
-            queries.astype(jnp.float32),
-            safe,
-            cfg.space,
-            cfg.quantized,
-        )
-    else:
-        cand_vecs, is_sent = gather_vectors(state, cand_ids, cfg)  # [Q, B*R, D]
-        cand_dist = dist_mod.gathered(queries, cand_vecs, cfg.space)
+    cand_vecs, is_sent = gather_vectors(state, cand_ids, cfg)  # [Q, B*R, D]
+    cand_dist = dist_mod.gathered(queries, cand_vecs, cfg.space)
     cand_dist = jnp.where(is_sent, INF, cand_dist)
     cand_ids = jnp.where(is_sent, SENTINEL, cand_ids)
 

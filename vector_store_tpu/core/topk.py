@@ -25,12 +25,10 @@ def topk_ascending(dist: jnp.ndarray, k: int) -> tuple[jnp.ndarray, jnp.ndarray]
 def topk_ascending_approx(
     dist: jnp.ndarray, k: int, recall_target: float = 0.99
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Smallest-k via the TPU-native approximate top-k unit.
-
-    `lax.approx_min_k` avoids the O(n log n) XLA sort — on TPU it runs as
-    a partial-reduction at near-memory-bandwidth speed.  Used on the big
-    reductions (routing stage over the C/8 sample); exact top_k stays on
-    the small final extractions.
+    """Smallest-k via `lax.approx_min_k`, used on the big reductions
+    (routing stage over the C/8 sample); exact top_k stays on the small
+    final extractions.  On a GPU, JAX lowers approx_min_k as
+    sort-and-slice: the result is exact there, at the cost of a sort.
     """
     val, idx = jax.lax.approx_min_k(dist, k, recall_target=recall_target)
     return val, idx
@@ -46,7 +44,7 @@ def merge_pool_fast(
     """Sort-free pool merge: membership-matrix dedup + one top-k.
 
     Replaces the 3-operand lexicographic sort of `merge_pool` with
-    VPU-shaped work: new candidates are masked out if already present in
+    elementwise work: new candidates are masked out if already present in
     the pool (an O(P·C) equality matrix — P and C are both ≲256, so the
     matrix is tiny next to the vector gathers), and duplicates *within*
     the new block are masked by a single-key sort over just the ids.

@@ -76,7 +76,7 @@ class AddOrReplaceBatch:
     """ANN protocol extension: one message carrying many upserts.
 
     The reference inserts one vector per message (its usearch add is
-    per-row CPU work); on TPU an insert is a fixed-shape device step, so
+    per-row CPU work); here an insert is a fixed-shape device step, so
     the ingestion path coalesces (ingest/monitor_items.py) and ships
     whole batches — one jitted step instead of hundreds."""
 
@@ -220,7 +220,7 @@ def spawn_index_actor(process, name: str = "index") -> IndexHandle:
 
     If `process` exposes a `coalesce(msgs) -> msgs` hook, each loop turn
     drains everything already queued and lets the backend merge runs of
-    consecutive messages before processing — on TPU a mutation is a
+    consecutive messages before processing — a mutation is a
     fixed-shape device step, so ten queued single-row upserts should cost
     one step, not ten (the rayon-offload role, usearch.rs:115-118, played
     by batching instead of threads).  Order across message types is

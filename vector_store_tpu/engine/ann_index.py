@@ -1,4 +1,4 @@
-"""ANN index backend — the usearch actor role on TPU.
+"""ANN index backend — the usearch actor role on the device.
 
 Per-index actor wrapping a device `SlotIndex` plus the key bimap
 (reference: src/index/usearch.rs — actor at :105-146, bimap :109-113,

@@ -3,7 +3,7 @@
 The reference throttles per-index concurrency with semaphores
 (2 in-flight for opensearch: src/index/opensearch.rs:109-113; 2×rayon
 threads for usearch: src/index/usearch.rs:115-118) because its backends
-process one query per call.  A TPU wants the opposite: *coalesce*
+process one query per call.  An accelerator wants the opposite: *coalesce*
 concurrent requests into one fixed-shape batched device step.  The
 micro-batcher collects requests for up to `window_s` (or until
 `max_batch`), pads to the shape bucket and runs one device call in a

@@ -23,9 +23,9 @@ class IndexFactory(Protocol):
 
 # kind="auto" crossover: below this declared capacity the graph backend's
 # sub-linear traversal wins on latency-sensitive small collections; at and
-# above it the IVF bucketed scan dominates on QPS (driver-captured curve
-# in ARCHITECTURE.md "Backend crossover" — at 1M x 768 the scan family is
-# several-fold faster than graph traversal at equal recall)
+# above it the IVF bucketed scan is expected to win on QPS.  The value
+# was set on another accelerator; the GPU crossover is not measured yet
+# (ROADMAP S2)
 AUTO_IVF_MIN_CAPACITY = 200_000
 
 

@@ -1,4 +1,4 @@
-"""Text index backend — the OpenSearch actor role, TPU-resident.
+"""Text index backend — the OpenSearch actor role, device-resident.
 
 Per-index actor serving the live text protocol (Add/Remove/Search,
 reference: src/index/actor.rs:13-27) over the BM25 device index instead

@@ -88,7 +88,11 @@ class MemDb:
         self._bump()
 
     def add_index(
-        self, name: str, table: str, params: Optional[IndexParams] = None
+        self,
+        name: str,
+        table: str,
+        params: Optional[IndexParams] = None,
+        kind: str = "ann",
     ) -> IndexMetadata:
         tbl = self._tables[table]
         params = params or IndexParams(dimensions=tbl.dimensions)
@@ -98,6 +102,7 @@ class MemDb:
             params=params,
             version=f"v{self._schema_version}",
             key_columns=tbl.primary_key_columns,
+            kind=kind,
         )
         self._indexes[index_id] = _Index(table, meta)
         self._bump()

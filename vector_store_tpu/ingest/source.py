@@ -38,9 +38,8 @@ class EmbeddingStream:
     # benchmarks", db_index.rs:72-75) — sized for per-row CPU inserts.
     # Here the consumer (monitor_items) coalesces everything queued into
     # ONE batched device step, so a deeper channel directly becomes
-    # device batch size; 8192 ≈ one IVF ingest chunk (the r5 profile
-    # measured the fixed per-apply cost — assignment readback plus
-    # dispatch — dominating 1024-row applies).
+    # device batch size; 8192 ≈ one IVF ingest chunk, which amortizes
+    # the fixed per-apply cost (assignment readback plus dispatch).
     CAPACITY = 8192
 
     def __init__(self, primary_key_columns: Sequence[str]) -> None:

@@ -1,9 +1,10 @@
 """Device mesh helpers.
 
-Collections larger than one chip shard across devices over ICI
+Collections larger than one device shard across devices
 (SURVEY §2 parallelism checklist: document-sharding is the only axis a
 vector store has; queries are replicated, per-shard top-k results are
-all-gathered and merged).  Multi-host pods extend the same mesh over DCN
+all-gathered and merged; the mesh is a flat 1-D axis, as the cards of
+one host are joined all to all).  Multi-host setups extend the same mesh
 via jax.distributed — the axis name stays "shard" either way.
 """
 

@@ -1,11 +1,11 @@
-"""Multi-chip sharded ANN index — documents sharded, top-k merged over ICI.
+"""Multi-device sharded ANN index — documents sharded, top-k merged.
 
 The scaling story the reference never had (single-node CPU service): the
 graph index shards by document across a `jax.sharding.Mesh`.  Each device
 owns an independent GraphState shard; a query batch is replicated, every
 shard runs the same batched beam search locally, and the per-shard top-k
 results meet in an `all_gather` + merge — one collective on the critical
-path, riding ICI (SURVEY §2 parallelism checklist; BASELINE config 5).
+path (SURVEY §2 parallelism checklist; BASELINE config 5).
 
 Layout: every state array gains a leading shard axis —
 vectors[S, C, D], neighbors[S, C, R], ... — sharded on axis 0 with
@@ -77,7 +77,7 @@ def _relocal(state: GraphState) -> GraphState:
 
 
 def _gid_merge(local, d, i, S, k):
-    """Encode local slots as global ids and merge per-shard top-k over ICI.
+    """Encode local slots as global ids and merge per-shard top-k.
 
     gid = slot * S + shard: capacity-independent, so ids issued before a
     capacity-doubling growth stay valid after it."""
@@ -707,13 +707,7 @@ class ShardedSlotIndex:
             meta = json.loads(bytes(z["meta"]).decode())
             if not meta.get("sharded"):
                 raise ValueError("not a sharded snapshot (use core.persist.load)")
-            from ..core.index import default_fused_gather
-
-            # backend-local execution choice, re-derived at load (a
-            # TPU-written snapshot must load on a CPU mesh and vice versa)
-            cfg = GraphConfig(
-                **{**meta["cfg"], "fused_gather": default_fused_gather()}
-            )
+            cfg = GraphConfig.from_meta(meta["cfg"])
             idx = cls.__new__(cls)
             idx.params = _IP(**meta["params"])
             idx.mesh = mesh or make_mesh(n_devices or meta["n_shards"])

@@ -1,18 +1,18 @@
-"""Multi-chip sharded IVF — documents sharded, probe-scan per shard,
-top-k merged over ICI.
+"""Multi-device sharded IVF — documents sharded, probe-scan per shard,
+top-k merged across devices.
 
-The IVF bucketed backend (core/ivf.py) is the fastest serving tier at
-the 1M–100M scale; this wraps it over a `jax.sharding.Mesh` so a
-collection larger than one chip's HBM shards by document (BASELINE
-config 5: 100M × 768-d across a pod; SURVEY §2 parallelism checklist).
+The IVF bucketed backend (core/ivf.py) is the serving tier at the
+1M–100M scale; this wraps it over a `jax.sharding.Mesh` so a collection
+larger than one device's memory shards by document (BASELINE config 5:
+100M × 768-d across four cards; SURVEY §2 parallelism checklist).
 
 Layout: every `IvfState` array gains a leading shard axis —
 centroids[S, K, D], vectors[S, K, B, D], ... — sharded on axis 0 with
 `NamedSharding(mesh, P("shard"))`.  Each device owns an independent IVF
 bank; a query batch is replicated, every shard runs the same probe-scan
-locally (the fused Pallas kernel when the layout allows, the XLA
-lax.scan path otherwise), and per-shard top-k results meet in ONE
-`all_gather` + merge on the critical path, riding ICI.
+locally (the Pallas probe-scan kernel on a GPU, the XLA lax.scan path
+elsewhere — core/ivf.py `scan_kernel_for`), and per-shard top-k results
+meet in ONE `all_gather` + merge on the critical path.
 
 Global ids: `gid = local_rowid * S + shard` — capacity-independent
 (rowids are already stable across bucket growth and reclustering inside
@@ -24,7 +24,7 @@ Recluster runs per shard under shard_map — each shard k-means its own
 rows locally (zero cross-shard traffic); all shards share one (K, B)
 bank geometry so the stacked state keeps a fixed shape.
 
-Reference role: the usearch index actor at pod scale
+Reference role: the usearch index actor at multi-device scale
 (src/index/usearch.rs) — a tier the single-node reference never had.
 """
 
@@ -57,7 +57,6 @@ from ..core.ivf import (
     _gather_dequant,
     _lloyd_iter,
     _storage_dtype,
-    FUSED_MAX_K,
     ROWS_PER_BUCKET,
     bucket_for,
     init,
@@ -66,7 +65,9 @@ from ..core.ivf import (
     permute_build_impl,
     place_impl,
     plan_placement,
+    scan_kernel_for,
     search_clustered,
+    search_clustered_kernel,
     search_flat,
     search_two_stage,
     unvalidate_impl,
@@ -178,26 +179,17 @@ def _sh_search(state, queries, space, k, probes, mode, mesh_holder,
                interpret=False):
     """Replicated queries → per-shard probe-scan → all_gather top-k merge.
 
-    mode: 'probe' (clustered scan), 'fused' (pallas kernel per shard),
-    'pool' (pallas pool kernel + XLA top-k, large-k), 'flat' (staging-
-    phase full scan), 'flat_exact' (the recall oracle).
-    `interpret` runs the fused kernel under the mosaic interpreter so the
-    sharded plumbing is testable on the CPU mesh."""
+    mode: 'kernel' (Pallas probe-scan kernel per shard), 'probe' (XLA
+    clustered scan), 'flat' (staging-phase full scan), 'flat_exact' (the
+    recall oracle).  `interpret` runs the kernel under the Pallas
+    interpreter so the sharded plumbing is testable on the CPU mesh."""
     mesh = mesh_holder.mesh
     S = mesh.devices.size
 
     def fn(state_blk, q_rep):
         local = _local(state_blk)
-        if mode == "fused":
-            from ..core.ivf_pallas import search_clustered_fused
-
-            d, rid = search_clustered_fused(
-                local, q_rep, space, k, probes, interpret=interpret
-            )
-        elif mode == "pool":
-            from ..core.ivf_pallas import search_clustered_pool
-
-            d, rid = search_clustered_pool(
+        if mode == "kernel":
+            d, rid = search_clustered_kernel(
                 local, q_rep, space, k, probes, interpret=interpret
             )
         elif mode == "probe":
@@ -243,25 +235,20 @@ def _sh_derive_coarse(state, mesh_holder):
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "space", "k", "probes", "cand", "fused", "mesh_holder", "interpret"
-    ),
+    jax.jit, static_argnames=("space", "k", "probes", "cand", "mesh_holder")
 )
 def _sh_search_two_stage(
-    state, coarse, queries, space, k, probes, cand, fused, mesh_holder,
-    interpret=False,
+    state, coarse, queries, space, k, probes, cand, mesh_holder
 ):
-    """Two-stage (int4 coarse + int8 rescore) per shard, gid-merged over
-    ICI — the sharded twin of core/ivf.py::search_two_stage."""
+    """Two-stage (int4 coarse + int8 rescore) per shard, gid-merged
+    across devices — the sharded twin of core/ivf.py::search_two_stage."""
     mesh = mesh_holder.mesh
     S = mesh.devices.size
 
     def fn(state_blk, coarse_blk, q_rep):
         local = _local(state_blk)
         d, rid = search_two_stage(
-            local, coarse_blk[0], q_rep, space, k, probes, cand,
-            fused=fused, interpret=interpret,
+            local, coarse_blk[0], q_rep, space, k, probes, cand
         )
         shard = jax.lax.axis_index(SHARD_AXIS).astype(jnp.int32)
         gid = jnp.where(rid == SENTINEL, SENTINEL, rid * S + shard)
@@ -835,19 +822,6 @@ class ShardedIvfIndex:
 
     # -- query --------------------------------------------------------------
 
-    def _fused_ok(self, packed: bool = False) -> bool:
-        import os
-
-        if os.environ.get("VST_IVF_FUSED") == "0":
-            return False
-        d_eff = self.dims // 2 if packed else self.dims
-        if self.bucket % 128 or d_eff % 128:
-            return False
-        try:
-            return jax.default_backend() not in ("cpu",)
-        except Exception:  # noqa: BLE001
-            return False
-
     def search(
         self, queries: np.ndarray, k: int, probes: int | None = None
     ) -> tuple[np.ndarray, np.ndarray]:
@@ -887,12 +861,8 @@ class ShardedIvfIndex:
                     max(self.rescore * k, 64),
                     min(probes, self.n_clusters) * self.bucket,
                 )
-                fused2 = self._fused_ok(packed=True)
-            elif self._fused_ok():
-                # same large-k routing as IvfIndex.search: the fused
-                # kernel's top-k is k serial extract-min sweeps, so past
-                # FUSED_MAX_K the pool-mode kernel + XLA top-k takes over
-                mode = "fused" if k <= FUSED_MAX_K else "pool"
+            elif scan_kernel_for(self.mesh.devices.flat[0].platform):
+                mode = "kernel"
             else:
                 mode = "probe"
             for off in range(0, n, QCHUNK):
@@ -910,7 +880,6 @@ class ShardedIvfIndex:
                         k,
                         probes,
                         cand,
-                        fused2,
                         self._holder,
                     )
                 else:

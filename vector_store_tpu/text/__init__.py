@@ -1,4 +1,4 @@
-"""Text index type: tokenizer + TPU-scored BM25 (SURVEY §7.6)."""
+"""Text index type: tokenizer + device-scored BM25 (SURVEY §7.6)."""
 
 from .bm25 import BM25Index  # noqa: F401
 from .sharded_bm25 import ShardedBM25Index  # noqa: F401

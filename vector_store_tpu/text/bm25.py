@@ -1,10 +1,10 @@
-"""TPU-scored BM25 text index.
+"""Device-scored BM25 text index.
 
 Replaces the OpenSearch/Lucene backend of the reference (src/index/
 opensearch.rs:157-210) with a device-resident scorer: documents live in
-HBM as fixed-shape *unique-term count* arrays and a whole query batch is
-scored against every document in one jitted pass — term matching is a
-VPU-wide equality reduction, streamed chunk-by-chunk like the
+device memory as fixed-shape *unique-term count* arrays and a whole
+query batch is scored against every document in one jitted pass — term
+matching is a vector-wide equality reduction, streamed chunk-by-chunk like the
 brute-force vector scan.
 
     terms   [C, U]  int32 unique hashed term ids per doc, 0-padded (PAD)

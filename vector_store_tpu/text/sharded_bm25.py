@@ -1,12 +1,12 @@
 """Document-sharded BM25 over a device mesh — the text backend's
-multi-chip story.
+multi-device story.
 
-The single-chip BM25Index (text/bm25.py) streams every document row
-through one chip's VPU; collections past one chip's HBM shard across
+The single-device BM25Index (text/bm25.py) streams every document row
+through one device; collections past one device's memory shard across
 the mesh exactly like the ANN banks do (shard/sharded_index.py):
 documents deal round-robin to shards, a query batch is replicated,
 every shard scores its local block with the same chunked scan, and the
-per-shard top-k meet in one `all_gather` + descending merge over ICI
+per-shard top-k meet in one `all_gather` + descending merge
 (SURVEY §2 parallelism checklist; the reference's OpenSearch backend
 got this from the remote cluster's own sharding —
 /root/reference/src/index/opensearch.rs:41-47 fronts a cluster, so

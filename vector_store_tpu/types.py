@@ -1,4 +1,4 @@
-"""Domain types for the TPU-native vector/text store.
+"""Domain types for the vector/text store.
 
 Mirrors the reference's newtype surface (reference: src/lib.rs:29-265) with
 Python-idiomatic types.  These are the values that cross every actor seam:

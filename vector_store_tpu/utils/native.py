@@ -282,11 +282,10 @@ class NativeKeyMap:
 
 # ---------------------------------------------------------------------------
 # Serving-path JSON fast scanners (native/fastjson.cpp).  Python's json
-# module costs ~400us to parse one 768-d embedding body — the measured
-# r5 single-process serving wall (~600 QPS at 768-d before the device
-# does anything).  These parse the PostIndexAnnRequest hot fields in
-# ~20us, with a guaranteed fall-back (return None) to json.loads on any
-# structural surprise.
+# module's parse of one 768-d embedding body is a large share of a
+# single-process server's per-request host time.  These parse the
+# PostIndexAnnRequest hot fields directly, with a guaranteed fall-back
+# (return None) to json.loads on any structural surprise.
 
 
 def parse_json_floats(body: bytes, key: bytes, cap: int) -> Optional[np.ndarray]:

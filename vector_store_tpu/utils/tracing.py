@@ -2,8 +2,8 @@
 
 The reference wraps every actor task in a named tracing span carrying
 the index id (src/index/usearch.rs:135, src/engine.rs:128, …) and traces
-HTTP requests with tower-http (src/httproutes.rs:45).  The TPU
-equivalents: stdlib logging with per-actor logger names (vst.engine,
+HTTP requests with tower-http (src/httproutes.rs:45).  The
+equivalents here: stdlib logging with per-actor logger names (vst.engine,
 vst.ann, …, already wired throughout), and `jax.profiler` traces around
 device steps for XLA-level timing.
 """
